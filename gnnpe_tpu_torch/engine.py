@@ -1,0 +1,224 @@
+"""End-to-end PE / PGE engines on one device (counterpart of
+gnnpe_tpu/engine.py with ``attach_mesh(packed=True)``).
+
+  offline      → paths (PE) / VDE + per-vertex path groups (PGE), host
+  build_index  → VDE + PDE (PE) and the host packed index
+  attach_device → the index uploaded (index/device_packed.py)
+  online       → VDE + plan → device search → host refinement → count
+
+VDE runs on the engine's device for the data graph and for every
+query.  Partitions only shard work and the candidate union does not
+depend on them, so the single-device engines do not partition.  Both
+variants' searches answer one protocol, ``search(query, union=)``; the
+variant supplies only its query table.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+
+from gnnpe_tpu_torch.config import PEConfig, PGEConfig
+from gnnpe_tpu_torch.embed.pde import (PathEmbeddings, gen_pde,
+                                       gen_query_pde_table, path_groups)
+from gnnpe_tpu_torch.embed.vde import gen_vde
+from gnnpe_tpu_torch.graph.csr import CSRGraph
+from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
+from gnnpe_tpu_torch.index.device_packed import (DevicePackedPESearch,
+                                                 DevicePackedPGESearch,
+                                                 PEQuery, PGEQuery)
+from gnnpe_tpu_torch.index.packed import PackedDominanceIndex, PGEPackedIndex
+from gnnpe_tpu_torch.match.plan import greedy_path_cover
+from gnnpe_tpu_torch.match.refine import refinement
+from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
+from gnnpe_tpu_torch.utils.device import as_device
+from gnnpe_tpu_torch.utils.timers import StageTimer
+
+
+@dataclass
+class MatchResult:
+    answer_count: int
+    candidates: List[np.ndarray]
+    timings_ms: dict
+
+
+class _Engine:
+    """Shared online path; subclasses define offline/build_index, the
+    search class, and how a query graph becomes a query table."""
+
+    search_cls = None
+
+    def __init__(self, config, data_graph: CSRGraph, device):
+        """device: where VDE and the search run."""
+        self.config = config
+        self.graph = data_graph
+        self.device = as_device(device)
+        self.vertices = None
+        self.index = None
+        self.searcher = None
+
+    def _vde(self, graph: CSRGraph):
+        return gen_vde(graph, self.config.vde_dim, self.device)
+
+    def attach_device(self, device):
+        """Upload the host index to ``device`` for the online search
+        (query VDE runs there too).  ``device`` must be the one the
+        engine was made with, where the data-graph VDE ran.  Requires
+        build_index() first."""
+        if self.index is None:
+            raise RuntimeError("call build_index() before attach_device()")
+        if as_device(device) != self.device:
+            raise ValueError(f"attach_device({device!r}): the engine was "
+                             f"made for {self.device}")
+        self.searcher = self.search_cls(self.index, self.device,
+                                        base_epsilon=self.config.epsilon)
+        return self
+
+    def online(self, query_graph: CSRGraph, engine: str = "native",
+               union: str = "host") -> MatchResult:
+        if self.searcher is None:
+            raise RuntimeError("call attach_device() before online()")
+        t = StageTimer(self.device)
+        with t.stage("query_plan"):
+            query = self._stack([self._query_table(query_graph)])
+        with t.stage("search"):
+            cands = self.searcher.search(query, union=union)
+        with t.stage("refine"):
+            count = refinement(self.graph, query_graph, cands,
+                               self.config.max_answers, engine=engine)
+        return MatchResult(answer_count=int(count), candidates=cands,
+                           timings_ms=t.times_ms)
+
+    def online_many(self, query_graphs, engine: str = "native",
+                    union: str = "host") -> List[MatchResult]:
+        """Batched serving: all queries' rows stack into one search
+        (query-vertex ids offset into one disjoint space), then the
+        candidates split per query for refinement."""
+        if self.searcher is None:
+            raise RuntimeError("call attach_device() before online_many()")
+        query = self._stack([self._query_table(qg) for qg in query_graphs])
+        cands_all = self.searcher.search(query, union=union)
+        per_query, base = [], 0
+        for qg in query_graphs:
+            per_query.append(cands_all[base:base + qg.num_vertices])
+            base += qg.num_vertices
+        return _refine_batch(self.graph, query_graphs, per_query,
+                             self.config.max_answers, engine)
+
+
+def _refine_batch(graph, query_graphs, per_query_cands, max_answers,
+                  engine) -> List[MatchResult]:
+    """Refinement per query, threaded when the native engine runs (its
+    ctypes call releases the GIL)."""
+
+    def one(qg, cands):
+        t = StageTimer()
+        with t.stage("refine"):
+            count = refinement(graph, qg, cands, max_answers,
+                               engine=engine)
+        return MatchResult(answer_count=int(count), candidates=cands,
+                           timings_ms=t.times_ms)
+
+    if engine != "python" and len(query_graphs) > 1:
+        with ThreadPoolExecutor(max_workers=min(8, len(query_graphs))) \
+                as pool:
+            return list(pool.map(one, query_graphs, per_query_cands))
+    return [one(qg, c) for qg, c in zip(query_graphs, per_query_cands)]
+
+
+class PEEngine(_Engine):
+    """GNN-PE variant: one index entry per path, position-wise test."""
+
+    search_cls = DevicePackedPESearch
+
+    def __init__(self, config: PEConfig, data_graph: CSRGraph, device):
+        super().__init__(config, data_graph, device)
+        self.paths = None
+
+    def offline(self):
+        """Enumerate paths from degree-sorted starts, one orientation
+        each (ref main.cpp:75-120)."""
+        order = degree_sorted_nodes(self.graph)
+        self.paths, _ = enumerate_paths(self.graph, order,
+                                        self.config.path_length, dedup=True)
+        return self
+
+    def build_index(self, block_size: int = 512):
+        """VDE on the device, PDE, and the host packed index."""
+        self.vertices = self._vde(self.graph)
+        self.index = PackedDominanceIndex.build(
+            gen_pde(self.vertices, self.paths), block_size=block_size)
+        return self
+
+    def _query_table(self, qg: CSRGraph):
+        qv = self._vde(qg)
+        q_paths, _ = enumerate_paths(qg, np.arange(qg.num_vertices),
+                                     self.config.path_length, dedup=True)
+        q_pde, weight, _ = gen_query_pde_table(qv, q_paths)
+        plan = greedy_path_cover(q_paths, weight, qg.num_vertices)
+        return q_pde, plan, qg.num_vertices
+
+    @staticmethod
+    def _stack(tables) -> PEQuery:
+        names = [f.name for f in dataclasses.fields(PathEmbeddings)]
+        parts, base = [], 0
+        for q_pde, plan, n in tables:
+            part = {k: getattr(q_pde, k)[plan] for k in names}
+            part["vids"] = part["vids"] + base
+            parts.append(part)
+            base += n
+        big = PathEmbeddings(**{k: np.concatenate([p[k] for p in parts])
+                                for k in names})
+        return PEQuery(big, np.arange(big.num_paths), base)
+
+
+class PGEEngine(_Engine):
+    """GNN-PGE variant: one index entry per vertex, boxed by its path
+    group."""
+
+    search_cls = DevicePackedPGESearch
+
+    def __init__(self, config: PGEConfig, data_graph: CSRGraph, device):
+        super().__init__(config, data_graph, device)
+        self.group = None
+        self.label_group = None
+
+    def offline(self):
+        """VDE on the device and per-vertex path groups
+        (ref GNN-PGE/src/main.cpp:91-177)."""
+        self.vertices = self._vde(self.graph)
+        order = degree_sorted_nodes(self.graph)
+        paths, _ = enumerate_paths(self.graph, order,
+                                   self.config.path_length, dedup=False)
+        self.group, self.label_group = path_groups(
+            self.vertices, paths[:, 0], paths, self.config.pde_dim)
+        return self
+
+    def build_index(self, block_size: int = 512):
+        self.index = PGEPackedIndex.build(
+            self.vertices.labels, self.vertices.degrees, self.group,
+            self.label_group, block_size=block_size)
+        return self
+
+    def _query_table(self, qg: CSRGraph) -> PGEQuery:
+        qv = self._vde(qg)
+        q_paths, _ = enumerate_paths(qg, np.arange(qg.num_vertices),
+                                     self.config.path_length, dedup=False)
+        if len(q_paths) == 0:
+            raise ValueError(
+                "query has a vertex with no path; unsupported (the "
+                "reference reads uninitialized memory here, "
+                "GNN-PGE/src/main.cpp:284-330)")
+        group, label_group = path_groups(qv, q_paths[:, 0], q_paths,
+                                         self.config.pde_dim)
+        return PGEQuery(qv.labels, qv.degrees, group, label_group)
+
+    @staticmethod
+    def _stack(tables) -> PGEQuery:
+        return PGEQuery(**{
+            f.name: np.concatenate([getattr(t, f.name) for t in tables])
+            for f in dataclasses.fields(PGEQuery)})
