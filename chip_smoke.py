@@ -16,17 +16,34 @@
    (host union, then device union), then all 8 at once through
    ``online_many`` with the device union.
 5. PGE phase: the same graph and queries with PGE -l 2.
+6. A2 phase: the ELL gather-sum kernel on the dblp graph's binned
+   layout — ``BinnedEllDevice.apply_perm`` through the kernel against
+   ``gather_sum_plain`` in f32 at the trainer's width (D=2) and D=128,
+   required bit-equal, with both times; the autograd backward of
+   ``symmetric_aggregate`` and of A1's ``NeighborSum`` bit-equal to the
+   forward of the cotangent.
+7. Train phase: ``train_payoff.run`` at the dblp rung (PGE, D=2, 300
+   steps, binned aggregation, 8 held-out queries).  A2 must launch in
+   every step's forward and backward; every loss finite and the last
+   below the first; every trained answer equal to the fixed-VDE answer;
+   every trained candidate set equal to the flat f64 host filter on the
+   embedder's own VDE; the card's f64 trained VDE within rtol 1e-12 of
+   a numpy forward of the same weights.  Then a 50-step
+   ``aggregation="segment"`` fit from the same initial weights and
+   batches (the binned run's first chunk) must track the binned loss
+   history within rtol 1e-3.
 
 The card's f64 data-graph VDE must equal gnnpe_tpu's numpy ``gen_vde``
 (re-exported as ``gen_vde_host``).  Every query's candidates must equal
 the flat f64 host filter, run on that numpy VDE for the data graph and
 every query (so it shares no code with the port's VDE, the packed index
 or the kernel), and every answer count must equal native refinement on
-those candidates.  The kernel's launch count over each phase's engine
-run must be > 0, and the index tensors must live on the card.  Any
-failure exits non-zero.  The full record is printed as one
-``record: {...}`` line; the second-to-last line is the kernels record,
-the last is {"ok": true, "device": {...}}.
+those candidates.  Each kernel's launch count over the main path of the
+phases that run it (A1: PE, PGE and train; A2: train) must be > 0, and
+the index tensors must live on the card.  Any failure exits non-zero.
+The full record is printed as one ``record: {...}`` line; the
+second-to-last line is the kernels record, the last is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -43,6 +60,10 @@ MAX_ANSWERS = 100_000
 QUERY_SEEDS = range(8)
 QUERY_SIZE = 8
 BLOCK_SIZE = 512
+KERNELS = ("spmm_csr", "ell_gather_sum")
+TRAIN_STEPS = 300
+TRAIN_QUERIES = 8
+SEGMENT_STEPS = 50        # the binned run's first chunk of batches
 
 
 def check(cond, msg: str) -> None:
@@ -64,18 +85,44 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _turns(plain_fn, kern, plain_iters, kern_iters) -> dict:
+    """CUDA-event times in turns within one call: plain, kernel, kernel,
+    plain."""
+    p1, k1, k2, p2 = (cuda_ms(plain_fn, plain_iters),
+                      cuda_ms(kern, kern_iters), cuda_ms(kern, kern_iters),
+                      cuda_ms(plain_fn, plain_iters))
+    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                turns_ms=[p1, k1, k2, p2])
+
+
+def _print_turns(what, row) -> None:
+    t = row["turns_ms"]
+    print(f"{what}: bit-equal to plain; kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms (plain, kernel, kernel, plain = "
+          f"{t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.4f})")
+
+
 def build_phase(record) -> None:
+    """Every kernel's nvcc started at once, then each library loaded."""
+    from concurrent.futures import ThreadPoolExecutor
     from gnnpe_tpu_torch.graph.csr import CSRGraph
     from gnnpe_tpu_torch.kernels import _build
     from gnnpe_tpu_torch.match.refine import refinement
-    t0 = time.perf_counter()
-    so = _build.build("spmm_csr")
-    _build.load("spmm_csr")
-    record["build_s"] = {"spmm_csr": time.perf_counter() - t0}
-    print(f"built spmm_csr in {record['build_s']['spmm_csr']:.2f} s: {so}")
-    log = so.with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip())
+
+    def timed_build(name):
+        t0 = time.perf_counter()
+        return _build.build(name), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = dict(zip(KERNELS, pool.map(timed_build, KERNELS)))
+    record["build_s"] = {}
+    for name, (so, secs) in built.items():
+        _build.load(name)
+        record["build_s"][name] = secs
+        print(f"built {name} in {secs:.2f} s: {so}")
+        log = so.with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip())
     t0 = time.perf_counter()
     tri = CSRGraph.from_edges(3, np.array([[0, 1], [1, 2], [0, 2]]),
                               np.zeros(3, np.int64))
@@ -110,23 +157,12 @@ def kernel_phase(g, device, record) -> dict:
               f"spmm_csr {name} differs from its plain version "
               f"(max abs err {err})")
 
-        def kern():
-            spmm.neighbor_sum(off, nbr, x)
-
-        def plain_fn():
-            spmm.neighbor_sum_plain(off, nbr, x)
-
-        # Turns within one call: plain, kernel, kernel, plain.
-        p1, k1, k2, p2 = (cuda_ms(plain_fn, 5), cuda_ms(kern, 50),
-                          cuda_ms(kern, 50), cuda_ms(plain_fn, 5))
-        rows[name] = dict(max_abs_err=err, ms=(k1 + k2) / 2,
-                          plain_ms=(p1 + p2) / 2, turns_ms=[p1, k1, k2, p2],
-                          bytes_gathered=int(nbr.numel() * x.shape[1]
-                                             * x.element_size()))
-        print(f"spmm_csr {name}: bit-equal to plain; kernel "
-              f"{rows[name]['ms']:.4f} ms, plain {rows[name]['plain_ms']:.4f}"
-              f" ms (plain, kernel, kernel, plain = {p1:.4f}, {k1:.4f}, "
-              f"{k2:.4f}, {p2:.4f})")
+        rows[name] = dict(
+            max_abs_err=err,
+            bytes_gathered=int(nbr.numel() * x.shape[1] * x.element_size()),
+            **_turns(lambda: spmm.neighbor_sum_plain(off, nbr, x),
+                     lambda: spmm.neighbor_sum(off, nbr, x), 5, 50))
+        _print_turns(f"spmm_csr {name}", rows[name])
     record["kernel"] = rows
     return rows
 
@@ -255,37 +291,209 @@ def pe_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> int:
 
 def pge_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> int:
     from gnnpe_tpu_torch.config import PGEConfig
-    from gnnpe_tpu_torch.embed.pde import path_groups
     from gnnpe_tpu_torch.embed.vde import gen_vde_host
     from gnnpe_tpu_torch.engine import PGEEngine
-    from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
-    from gnnpe_tpu_torch.match.filter import pge_candidates_chunked
     from gnnpe_tpu_torch.match.refine import refinement
-    from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
     cfg = PGEConfig.from_cli(l=2, e=2, n=MAX_ANSWERS)
     eng = PGEEngine(cfg, g, device)
     runs, launches = _engine_phase("pge", eng, queries, device, record,
                                    block_size)
 
     host = _checked_host_vde(g, cfg, eng, device)
-    paths, _ = enumerate_paths(g, degree_sorted_nodes(g), cfg.path_length,
-                               dedup=False)
-    group, lgroup = path_groups(host, paths[:, 0], paths, cfg.pde_dim)
-    for i, q in enumerate(queries):
-        qv = gen_vde_host(q, cfg.vde_dim)
-        q_paths, _ = enumerate_paths(q, np.arange(q.num_vertices),
-                                     cfg.path_length, dedup=False)
-        q_group, q_lgroup = path_groups(qv, q_paths[:, 0], q_paths,
-                                        cfg.pde_dim)
-        want = pge_candidates_chunked(
-            host.labels, host.degrees, group, lgroup, qv.labels, qv.degrees,
-            q_group, q_lgroup, list(range(q.num_vertices)),
-            epsilon=cfg.epsilon)
+    wants = _pge_oracle(g, cfg, host, lambda q: gen_vde_host(q, cfg.vde_dim),
+                        queries)
+    for i, (q, want) in enumerate(zip(queries, wants)):
         count = refinement(g, q, want, cfg.max_answers, engine="native")
         _check_query("pge", i, runs, want, count)
     print(f"pge: {len(queries)} queries x {sorted(runs)} equal the "
           "flat f64 oracle and native refinement")
     return launches
+
+
+def _pge_oracle(g, cfg, host, embed, queries) -> list:
+    """Per query, the flat f64 host filter's candidates, with ``host``
+    the data graph's VDE and ``embed(q)`` each query's."""
+    from gnnpe_tpu_torch.embed.pde import path_groups
+    from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
+    from gnnpe_tpu_torch.match.filter import pge_candidates_chunked
+    from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
+    paths, _ = enumerate_paths(g, degree_sorted_nodes(g), cfg.path_length,
+                               dedup=False)
+    group, lgroup = path_groups(host, paths[:, 0], paths, cfg.pde_dim)
+    wants = []
+    for q in queries:
+        qv = embed(q)
+        q_paths, _ = enumerate_paths(q, np.arange(q.num_vertices),
+                                     cfg.path_length, dedup=False)
+        q_group, q_lgroup = path_groups(qv, q_paths[:, 0], q_paths,
+                                        cfg.pde_dim)
+        wants.append(pge_candidates_chunked(
+            host.labels, host.degrees, group, lgroup, qv.labels, qv.degrees,
+            q_group, q_lgroup, list(range(q.num_vertices)),
+            epsilon=cfg.epsilon))
+    return wants
+
+
+def ell_phase(g, device, record) -> dict:
+    """A2 on the dblp layout: apply_perm through the kernel against
+    gather_sum_plain, and the two autograd backwards; returns the f32
+    rows of the kernels record (D=2 is the trainer's shape)."""
+    import torch
+    from gnnpe_tpu_torch.graph.csr import to_device
+    from gnnpe_tpu_torch.ops import ell, spmm
+    t0 = time.perf_counter()
+    host = ell.build_binned_ell(g.offsets, g.neighbors)
+    lay = ell.BinnedEllDevice.from_host(host, device)
+    tables = [tuple(t.shape) for t, _ in lay.head + lay.classes]
+    record["ell_layout"] = dict(
+        build_s=time.perf_counter() - t0, num_slots=lay.num_slots,
+        num_head=lay.num_head, num_hub_arcs=lay.num_hub_arcs, tables=tables,
+        padded_tables=sum(pc is not None for _, pc in lay.head + lay.classes))
+    print("ell layout: " + json.dumps(record["ell_layout"]))
+    rng = np.random.RandomState(1)
+    rows = {}
+    for d in (2, 128):
+        h = torch.from_numpy(rng.rand(g.num_vertices, d).astype(np.float32)
+                             ).to(device)
+        got = lay.apply_perm(h)
+        plain = lay.apply_perm(h, gather=ell.gather_sum_plain)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        check(torch.equal(got, plain), f"ell_gather_sum D={d} differs from "
+              f"its plain version (max abs err {err})")
+        name = f"f32_d{d}"
+        rows[name] = dict(
+            max_abs_err=err, bytes_gathered=lay.num_slots * d * 4,
+            **_turns(lambda: lay.apply_perm(h, gather=ell.gather_sum_plain),
+                     lambda: lay.apply_perm(h), 5, 50))
+        _print_turns(f"ell_gather_sum apply_perm {name} ({len(tables)} "
+                     "launches)", rows[name])
+
+    cot = torch.from_numpy(rng.rand(g.num_vertices, 2).astype(np.float32)
+                           ).to(device)
+    hg = torch.from_numpy(rng.rand(g.num_vertices, 2).astype(np.float32)
+                          ).to(device).requires_grad_(True)
+    ell.symmetric_aggregate(lay)(hg).backward(cot)
+    check(torch.equal(hg.grad, lay.apply_perm(cot)),
+          "symmetric_aggregate's backward differs from apply_perm(cotangent)")
+    off, nbr, _, _ = to_device(g, device)
+    xg = hg.detach().clone().requires_grad_(True)
+    spmm.NeighborSum.apply(off, nbr, xg).backward(cot)
+    check(torch.equal(xg.grad, spmm.neighbor_sum(off, nbr, cot)),
+          "NeighborSum's backward differs from neighbor_sum(cotangent)")
+    torch.cuda.synchronize()
+    print("backward of symmetric_aggregate (A2) and NeighborSum (A1): "
+          "bit-equal to the forward of the cotangent")
+    record["ell"] = rows
+    return rows
+
+
+def _numpy_forward(model, g) -> np.ndarray:
+    """model_embedder's forward in numpy f64 (the card's is held to it)."""
+    from gnnpe_tpu_torch.ops.spmm import neighbor_sum_np
+
+    def pos(p):
+        raw = p.detach().cpu().double().numpy()
+        return np.logaddexp(0.0, raw) if model.nonneg else raw
+
+    check(model.activation == "softplus", "numpy forward: softplus only")
+    h = pos(model.embed)[g.labels]
+    for i in range(model.num_layers):
+        nbr = neighbor_sum_np(g.offsets, g.neighbors, h)
+        h = np.logaddexp(0.0, h @ pos(model.w_self[i])
+                         + nbr @ pos(model.w_nbr[i]) + pos(model.bias[i]))
+    return h
+
+
+def train_phase(g, device, record, n_tables) -> tuple:
+    """train_payoff.run at the dblp rung (the main path: counts set to 0
+    just before, read just after), then its checks and the segment fit;
+    returns the (A1, A2) launches of the run."""
+    import torch
+    from gnnpe_tpu_torch.frontends import train_payoff
+    from gnnpe_tpu_torch.models.gnn import PathGNN
+    from gnnpe_tpu_torch.models.train import fit
+    from gnnpe_tpu_torch.ops import ell, spmm
+    spmm.LAUNCHES = 0
+    ell.LAUNCHES = 0
+    t0 = time.perf_counter()
+    pay = train_payoff.run("dblp", queries=TRAIN_QUERIES, steps=TRAIN_STEPS,
+                           device=device)
+    wall_s = time.perf_counter() - t0
+    launches = (spmm.LAUNCHES, ell.LAUNCHES)
+    fixed_row, trained_row = pay.rows
+    hist = pay.state.history
+    aggregation = trained_row["aggregation"]
+    rec = dict(wall_s=wall_s, spmm_launches=launches[0],
+               ell_launches=launches[1], aggregation=aggregation,
+               train_paths=int(len(pay.train_paths)),
+               train_s=trained_row["train_s"], step_ms=trained_row["step_ms"],
+               loss_first=hist[0], loss_last=hist[-1],
+               candidate_reduction_pct=trained_row["candidate_reduction_pct"],
+               fixed=fixed_row, trained=trained_row)
+    record["train"] = rec
+    print(f"train: {TRAIN_STEPS} steps ({aggregation}) in "
+          f"{rec['train_s']:.2f} s, {rec['step_ms']:.3f} ms/step, loss "
+          f"{hist[0]:.6f} -> {hist[-1]:.6f}; candidates "
+          f"-{rec['candidate_reduction_pct']:.2f} %; online p50 fixed "
+          f"{fixed_row['online_p50_ms']:.2f} ms, trained "
+          f"{trained_row['online_p50_ms']:.2f} ms")
+    check(aggregation == "binned", "dblp did not train binned")
+    # One forward and one backward apply_perm per step, one launch per
+    # table each: the backward went through the kernel too.
+    check(launches[1] == 2 * n_tables * TRAIN_STEPS,
+          f"{launches[1]} ell_gather_sum launches in fit, want "
+          f"{2 * n_tables * TRAIN_STEPS}")
+    check(launches[0] > 0, "train phase launched no spmm_csr kernel")
+    check(np.isfinite(hist).all() and len(hist) == TRAIN_STEPS,
+          "loss history not finite")
+    check(hist[-1] < hist[0], f"loss did not fall: {hist[0]} -> {hist[-1]}")
+
+    eng = pay.engine
+    check(np.allclose(eng.vertices.vde, _numpy_forward(pay.state.params, g),
+                      rtol=1e-12, atol=0.0),
+          "the card's trained f64 VDE differs from numpy's beyond 1e-12")
+    wants = _pge_oracle(g, eng.config, eng.vertices, eng.embedder,
+                        pay.queries)
+    for i, (want, fx, tr) in enumerate(zip(wants, pay.fixed, pay.trained)):
+        check(tr.answer_count == fx.answer_count,
+              f"trained query {i}: {tr.answer_count} answers, fixed "
+              f"{fx.answer_count}")
+        check(len(tr.candidates) == len(want) and all(
+            np.array_equal(a, b) for a, b in zip(tr.candidates, want)),
+            f"trained query {i}: candidates differ from the oracle")
+    print(f"train: {len(wants)} trained queries equal the fixed answers and "
+          "the flat f64 oracle on the embedder's VDE; trained VDE within "
+          "1e-12 of numpy")
+
+    seg = PathGNN(dim=2, num_layers=1, labels_count=g.labels_count,
+                  activation="softplus", device=device)
+    st = fit(seg, g, pay.train_paths, num_steps=SEGMENT_STEPS,
+             batch_size=1024, seed=0, negatives=True, learning_rate=1e-2,
+             aggregation="segment", device=device)
+    diff = np.abs(np.asarray(st.history) - np.asarray(hist[:SEGMENT_STEPS]))
+    rec["segment"] = dict(steps=SEGMENT_STEPS, step_ms=st.steps_s
+                          / SEGMENT_STEPS * 1e3, max_abs_diff=float(diff.max()))
+    check(np.allclose(st.history, hist[:SEGMENT_STEPS], rtol=1e-3,
+                      atol=1e-5),
+          f"segment fit's losses leave the binned ones (max diff "
+          f"{diff.max()})")
+    print(f"train: {SEGMENT_STEPS}-step segment fit tracks binned within "
+          f"rtol 1e-3 (max abs diff {diff.max():.3e}, "
+          f"{rec['segment']['step_ms']:.3f} ms/step)")
+    torch.cuda.synchronize()
+    return launches
+
+
+def _kernel_row(name, replaces, launches, rows, main_shape) -> dict:
+    """One entry of the kernels record; ms and plain_ms at the main
+    path's shape."""
+    return {"name": name, "route": "cuda",
+            "source": f"gnnpe_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": rows[main_shape]["ms"],
+            "plain_ms": rows[main_shape]["plain_ms"]}
 
 
 def main() -> int:
@@ -316,6 +524,7 @@ def main() -> int:
           f"({record['data_s']:.1f} s)")
 
     rows = kernel_phase(g, device, record)
+    ell_rows = ell_phase(g, device, record)
     torch.cuda.reset_peak_memory_stats()
     launches = pe_phase(g, queries, device, record)
     record["pe"]["peak_device_bytes"] = torch.cuda.max_memory_allocated()
@@ -324,17 +533,20 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     launches += pge_phase(g, queries, device, record)
     record["pge"]["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a1, a2 = train_phase(g, device, record, len(record["ell_layout"]["tables"]))
+    launches += a1
+    record["train"]["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     check("jax" not in sys.modules, "the port imported jax")
 
     print("record: " + json.dumps(record))
-    main_row = rows["f64_d2"]
-    print(json.dumps({"kernels": [{
-        "name": "spmm_csr", "route": "cuda",
-        "source": "gnnpe_tpu_torch/csrc/spmm_csr.cu",
-        "replaces": "experiments/pallas_spmm.py:181",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}]}))
+    print(json.dumps({"kernels": [
+        _kernel_row("spmm_csr", "experiments/pallas_spmm.py:181", launches,
+                    rows, "f64_d2"),
+        _kernel_row("ell_gather_sum", "experiments/pallas_blocked_spmm.py:106",
+                    a2, ell_rows, "f32_d2")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,10 +3,12 @@ Hopper GPU.
 
 The layout follows gnnpe_tpu module for module, so each file's
 counterpart is found under the same path there.  Host-only numpy stages
-(path enumeration, PDE, planning, the packed-index build, refinement)
-are re-exported from gnnpe_tpu; the device stages are PyTorch on
-tensors, and the neighbour-sum SpMM is a hand-written CUDA kernel
-(csrc/spmm_csr.cu).  This package imports torch and never jax.
+(path enumeration, PDE, planning, the packed-index build, the binned
+layout build, refinement) are re-exported from gnnpe_tpu; the device
+stages and the PathGNN trainer are PyTorch on tensors, and the two
+TPU kernels are hand-written CUDA: the neighbour-sum SpMM
+(csrc/spmm_csr.cu) and the ELL gather-sum of the binned layout
+(csrc/ell_gather_sum.cu).  This package imports torch and never jax.
 
 Every function that creates tensors takes an explicit ``device``.
 """

@@ -52,16 +52,23 @@ class _Engine:
 
     search_cls = None
 
-    def __init__(self, config, data_graph: CSRGraph, device):
-        """device: where VDE and the search run."""
+    def __init__(self, config, data_graph: CSRGraph, device,
+                 embedder=None):
+        """device: where VDE and the search run.  embedder:
+        callable(graph) -> VertexEmbeddings for the data graph and every
+        query, in place of the fixed label-seeded VDE (a trained
+        non-negative PathGNN, models/embedder.py, keeps answers exact)."""
         self.config = config
         self.graph = data_graph
         self.device = as_device(device)
+        self.embedder = embedder
         self.vertices = None
         self.index = None
         self.searcher = None
 
     def _vde(self, graph: CSRGraph):
+        if self.embedder is not None:
+            return self.embedder(graph)
         return gen_vde(graph, self.config.vde_dim, self.device)
 
     def attach_device(self, device):
@@ -135,8 +142,9 @@ class PEEngine(_Engine):
 
     search_cls = DevicePackedPESearch
 
-    def __init__(self, config: PEConfig, data_graph: CSRGraph, device):
-        super().__init__(config, data_graph, device)
+    def __init__(self, config: PEConfig, data_graph: CSRGraph, device,
+                 embedder=None):
+        super().__init__(config, data_graph, device, embedder)
         self.paths = None
 
     def offline(self):
@@ -182,8 +190,9 @@ class PGEEngine(_Engine):
 
     search_cls = DevicePackedPGESearch
 
-    def __init__(self, config: PGEConfig, data_graph: CSRGraph, device):
-        super().__init__(config, data_graph, device)
+    def __init__(self, config: PGEConfig, data_graph: CSRGraph, device,
+                 embedder=None):
+        super().__init__(config, data_graph, device, embedder)
         self.group = None
         self.label_group = None
 

@@ -34,6 +34,9 @@ _SIGNATURES = {
         name: [_c.c_int] + [_c.c_void_p] * 5
         + [_c.c_longlong, _c.c_int, _c.c_void_p]
         for name in ("gnnpe_spmm_csr_f64", "gnnpe_spmm_csr_f32")},
+    "ell_gather_sum": {
+        "gnnpe_ell_gather_sum_f32": [_c.c_int] + [_c.c_void_p] * 4
+        + [_c.c_longlong, _c.c_int, _c.c_int, _c.c_void_p]},
 }
 
 

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from gnnpe_tpu.ops.spmm import neighbor_sum_np  # the host f64 reference
+
 LAUNCHES = 0
 
 _KERNELS = {torch.float64: "gnnpe_spmm_csr_f64",
@@ -83,3 +85,22 @@ def neighbor_sum(offsets: torch.Tensor, neighbors: torch.Tensor,
             raise RuntimeError(f"spmm_csr launch failed: CUDA error {err}")
         LAUNCHES += 1
     return (nx, vde) if with_vde else nx
+
+
+class NeighborSum(torch.autograd.Function):
+    """``neighbor_sum`` as a differentiable op (f32 or f64) — the port of
+    gnnpe_tpu's ``aggregation="segment"`` under ``jax.grad``.  The
+    adjacency is symmetric, so the cotangent's pullback is the same
+    neighbour sum: the backward launches the same kernel.
+
+    Use as ``NeighborSum.apply(offsets, neighbors, x)``."""
+
+    @staticmethod
+    def forward(ctx, offsets, neighbors, x):
+        ctx.save_for_backward(offsets, neighbors)
+        return neighbor_sum(offsets, neighbors, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        offsets, neighbors = ctx.saved_tensors
+        return None, None, neighbor_sum(offsets, neighbors, g.contiguous())

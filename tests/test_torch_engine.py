@@ -133,11 +133,15 @@ def test_attach_device_cuda_raises_without_cuda(pe_pair):
 
 _SLICE = """
 import sys
+import numpy as np
 from gnnpe_tpu_torch.config import PEConfig, PGEConfig
 from gnnpe_tpu_torch.engine import PEEngine, PGEEngine
 from gnnpe_tpu_torch.frontends import cli
 from gnnpe_tpu_torch.io.datasets import powerlaw_graph, sample_query
 from gnnpe_tpu_torch.match.filter import pe_candidates_chunked
+from gnnpe_tpu_torch.frontends import train_payoff
+from gnnpe_tpu_torch.models import embedder, gnn, train
+from gnnpe_tpu_torch.ops import ell
 g = powerlaw_graph(300, 900, 6, seed=1, max_degree=30)
 q = sample_query(g, 4, seed=0)
 for cls, cfg in ((PEEngine, PEConfig.from_cli(l=2, e=2)),
@@ -146,6 +150,11 @@ for cls, cfg in ((PEEngine, PEConfig.from_cli(l=2, e=2)),
     eng.attach_device("cpu")
     assert eng.online(q).answer_count > 0
     eng.online_many([q, q], union="device")
+model = gnn.PathGNN(dim=2, labels_count=g.labels_count, device="cpu")
+paths = np.random.RandomState(0).randint(0, g.num_vertices, (64, 3))
+st = train.fit(model, g, paths, num_steps=3, batch_size=32,
+               aggregation="binned", negatives=True, device="cpu")
+assert st.step == 3 and embedder.model_embedder(model, "cpu")(q).vde.shape
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("no-jax-ok")
 """
