@@ -12,17 +12,35 @@
    order), with both times.
 4. PE phase: the exact online query at the dblp rung (317,080 vertices,
    1,049,866 edges; PE -l 2, 3-vertex paths, 512-entry blocks, answers
-   capped at 100,000): 8 tree queries of 8 vertices through ``online``
-   (host union, then device union), then all 8 at once through
-   ``online_many`` with the device union.
-5. PGE phase: the same graph and queries with PGE -l 2.
-6. A2 phase: the ELL gather-sum kernel on the dblp graph's binned
+   capped at 100,000) over the host-built array-mode index: 8 tree
+   queries of 8 vertices through ``online`` (host union, then device
+   union), then all 8 at once through ``online_many`` with the device
+   union.
+5. PE table phase: the same queries over the table-mode index built on
+   the card — ``offline(device=True)`` (device path enumeration and
+   dedup) and ``build_index(table=True)`` (sort key, stable sort,
+   permute-fold, one copy back).  Its paths must equal the host
+   enumeration's rows; its resident bytes and build stage times are
+   printed beside array mode's.  Then, outside the counted run: ``save``
+   and ``load`` at full size must give the same index and answers; each
+   device program of the build (enumeration, dedup, key, sort,
+   permute-fold) is timed alone with CUDA events, and the copy of the
+   vid table to the host into fresh pinned and fresh pageable memory
+   by wall clock; and the two PE layouts' ``search`` times are compared
+   on 64 more queries (seeds 100-163), in turns array, table, table,
+   array, each union, with equal candidates required.
+6. PGE phase: the same graph and queries with PGE -l 2 (host path
+   groups).
+7. PGE device phase: ``offline(device=True)`` — path groups folded on
+   the card — whose groups must equal phase 6's bit for bit; the fold is
+   timed alone with CUDA events.
+8. A2 phase: the ELL gather-sum kernel on the dblp graph's binned
    layout — ``BinnedEllDevice.apply_perm`` through the kernel against
    ``gather_sum_plain`` in f32 at the trainer's width (D=2) and D=128,
    required bit-equal, with both times; the autograd backward of
    ``symmetric_aggregate`` and of A1's ``NeighborSum`` bit-equal to the
    forward of the cotangent.
-7. Train phase: ``train_payoff.run`` at the dblp rung (PGE, D=2, 300
+9. Train phase: ``train_payoff.run`` at the dblp rung (PGE, D=2, 300
    steps, binned aggregation, 8 held-out queries).  A2 must launch in
    every step's forward and backward; every loss finite and the last
    below the first; every trained answer equal to the fixed-VDE answer;
@@ -38,12 +56,13 @@ The card's f64 data-graph VDE must equal gnnpe_tpu's numpy ``gen_vde``
 the flat f64 host filter, run on that numpy VDE for the data graph and
 every query (so it shares no code with the port's VDE, the packed index
 or the kernel), and every answer count must equal native refinement on
-those candidates.  Each kernel's launch count over the main path of the
-phases that run it (A1: PE, PGE and train; A2: train) must be > 0, and
-the index tensors must live on the card.  Any failure exits non-zero.
-The full record is printed as one ``record: {...}`` line; the
-second-to-last line is the kernels record, the last is
-{"ok": true, "device": {...}}.
+those candidates; the table and device phases share the oracle of the
+phase before them.  Each kernel's launch count over the main path of
+the phases that run it (A1: PE, PE table, PGE, PGE device and train;
+A2: train) must be > 0, and the index tensors must live on the card.
+Any failure exits non-zero.  The full record is printed as one
+``record: {...}`` line; the second-to-last line is the kernels record,
+the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -59,6 +78,7 @@ import numpy as np
 MAX_ANSWERS = 100_000
 QUERY_SEEDS = range(8)
 QUERY_SIZE = 8
+MODE_QUERIES = range(100, 164)   # the PE layouts' search comparison
 BLOCK_SIZE = 512
 KERNELS = ("spmm_csr", "ell_gather_sum")
 TRAIN_STEPS = 300
@@ -172,12 +192,13 @@ def _percentiles(vals):
             "p90": float(np.percentile(vals, 90))}
 
 
-def _drive(eng, queries, device, wall, prefix, block_size):
+def _drive(eng, queries, device, wall, prefix, block_size, offline_kw,
+           build_kw):
     """The main path: offline, index, upload, online x N, online_many."""
     with wall.stage(f"{prefix}.offline"):
-        eng.offline()
+        eng.offline(**offline_kw)
     with wall.stage(f"{prefix}.build_index"):
-        eng.build_index(block_size=block_size)
+        eng.build_index(block_size=block_size, **build_kw)
     with wall.stage(f"{prefix}.attach_device"):
         eng.attach_device(device)
     runs = {"online": [], "online_device_union": []}
@@ -213,20 +234,24 @@ def _summarise(prefix, eng, runs, survived, wall, launches,
         index_devices=devices, spmm_launches=launches,
         answers=[r.answer_count for r in single],
         candidates=[int(sum(map(len, r.candidates))) for r in single])
-    if prefix == "pe":
+    if hasattr(eng, "paths"):
         rec["paths"] = int(eng.paths.shape[0])
+    if getattr(eng.searcher, "build_phase_ms", None):
+        rec["build_phase_ms"] = eng.searcher.build_phase_ms
     record[prefix] = rec
     print(f"{prefix}: " + json.dumps(rec))
 
 
-def _engine_phase(prefix, eng, queries, device, record, block_size):
+def _engine_phase(prefix, eng, queries, device, record, block_size,
+                  offline_kw=None, build_kw=None):
     """Runs ``_drive`` with the kernel's launch count set to 0 just
     before and read just after; returns (runs, launches)."""
     from gnnpe_tpu_torch.ops import spmm
     from gnnpe_tpu_torch.utils.timers import StageTimer
     wall = StageTimer(device)
     spmm.LAUNCHES = 0
-    runs, survived = _drive(eng, queries, device, wall, prefix, block_size)
+    runs, survived = _drive(eng, queries, device, wall, prefix, block_size,
+                            offline_kw or {}, build_kw or {})
     launches = spmm.LAUNCHES
     _summarise(prefix, eng, runs, survived, wall, launches, record)
     check(launches > 0, f"{prefix} phase launched no spmm_csr kernel")
@@ -259,7 +284,7 @@ def _checked_host_vde(g, cfg, eng, device):
     return host
 
 
-def pe_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> int:
+def pe_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> tuple:
     from gnnpe_tpu_torch.config import PEConfig
     from gnnpe_tpu_torch.embed.pde import gen_query_pde_table
     from gnnpe_tpu_torch.embed.vde import gen_vde_host
@@ -274,22 +299,197 @@ def pe_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> int:
                                    block_size)
 
     host = _checked_host_vde(g, cfg, eng, device)
+    wants, counts = [], []
     for i, q in enumerate(queries):
         q_paths, _ = enumerate_paths(q, np.arange(q.num_vertices),
                                      cfg.path_length, dedup=True)
         q_pde, weight, _ = gen_query_pde_table(gen_vde_host(q, cfg.vde_dim),
                                                q_paths)
         plan = greedy_path_cover(q_paths, weight, q.num_vertices)
-        want = pe_candidates_chunked(host, eng.paths, q_pde, plan,
-                                     q.num_vertices, epsilon=cfg.epsilon)
-        count = refinement(g, q, want, cfg.max_answers, engine="native")
-        _check_query("pe", i, runs, want, count)
+        wants.append(pe_candidates_chunked(host, eng.paths, q_pde, plan,
+                                           q.num_vertices,
+                                           epsilon=cfg.epsilon))
+        counts.append(refinement(g, q, wants[-1], cfg.max_answers,
+                                 engine="native"))
+        _check_query("pe", i, runs, wants[-1], counts[-1])
     print(f"pe: {len(queries)} queries x {sorted(runs)} equal the "
           "flat f64 oracle and native refinement")
+    return launches, dict(paths=eng.paths, vertices=host, wants=wants,
+                          counts=counts, engine=eng)
+
+
+def pe_table_phase(g, queries, device, record, oracle,
+                   block_size=BLOCK_SIZE) -> int:
+    """The table-mode PE index built on the card through the engine (the
+    main path), held to the PE phase's oracle; then, outside the counted
+    run, save/load at full size, each device program of the build timed
+    alone, the host copy of the vid table both ways, and the search of
+    both PE layouts on more queries (the PE phase's array-mode engine
+    stays resident for it; peaks are counted above it).  Returns the
+    main path's A1 launches."""
+    import os
+    from pathlib import Path
+
+    import torch
+    from gnnpe_tpu_torch.config import PEConfig
+    from gnnpe_tpu_torch.engine import PEEngine
+    from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
+    from gnnpe_tpu_torch.index import device_packed as dp
+    from gnnpe_tpu_torch.paths import device_enumerate
+    from gnnpe_tpu_torch.paths.enumerate import start_ranks
+    cfg = PEConfig.from_cli(l=2, e=2, n=MAX_ANSWERS)
+    eng = PEEngine(cfg, g, device)
+    base = torch.cuda.memory_allocated()
+    runs, launches = _engine_phase("pe_table", eng, queries, device, record,
+                                   block_size, dict(device=True),
+                                   dict(table=True))
+    rec = record["pe_table"]
+    rec["main_path_peak_device_bytes"] = (torch.cuda.max_memory_allocated()
+                                          - base)
+    idx = eng.searcher
+    check(isinstance(idx, dp.TablePESearch) and eng.index is None,
+          "pe_table: build_index(table=True) did not build a table index")
+    check(eng.paths.is_cuda and np.array_equal(eng.paths.cpu().numpy(),
+                                               oracle["paths"]),
+          "pe_table: device-enumerated paths differ from the host rows")
+    for name in ("x", "nx", "vde"):
+        check(np.array_equal(getattr(oracle["vertices"], name),
+                             getattr(eng.vertices, name)),
+              f"pe_table: data-graph VDE {name} differs from numpy's")
+    for i in range(len(queries)):
+        _check_query("pe_table", i, runs, oracle["wants"][i],
+                     oracle["counts"][i])
+    print(f"pe_table: paths equal the host enumeration's rows; "
+          f"{len(queries)} queries x {sorted(runs)} equal the PE oracle; "
+          f"resident {rec['index_bytes']} B (array mode "
+          f"{record['pe']['index_bytes']} B)")
+
+    # save and load at full size re-serve the same index and answers.
+    out = Path(__file__).resolve().parent / "build" / "smoke_index"
+    out.mkdir(parents=True, exist_ok=True)
+    fp = str(out / "dblp_pe.npz")
+    t0 = time.perf_counter()
+    idx.save(fp)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = dp.TablePESearch.load(fp, eng.vertices, device)
+    load_s = time.perf_counter() - t0
+    file_bytes = sum(os.path.getsize(f) for f in out.iterdir())
+    for f in out.iterdir():
+        f.unlink()
+    out.rmdir()
+    check(np.array_equal(loaded._host_vids, idx._host_vids)
+          and all(torch.equal(getattr(loaded, k), getattr(idx, k))
+                  for k in ("d_vids", "b_ub", "b_llo", "b_lhi", "b_deg")),
+          "the loaded index differs from the saved one")
+    eng.searcher = loaded
+    for union in ("host", "device"):
+        for i, q in enumerate(queries):
+            r = eng.online(q, union=union)
+            check(r.answer_count == oracle["counts"][i] and all(
+                np.array_equal(a, b)
+                for a, b in zip(r.candidates, oracle["wants"][i])),
+                f"pe_table: loaded index, query {i} {union}: differs")
+    eng.searcher = idx
+    del loaded
+    rec["save_load"] = dict(save_s=save_s, load_s=load_s,
+                            file_bytes=file_bytes)
+    print(f"pe_table: save {save_s:.2f} s, load {load_s:.2f} s, "
+          f"{file_bytes} B on disk; the loaded index answers every query "
+          "equal to the oracle under both unions")
+
+    # Each device program of the build alone, by CUDA events.
+    order = degree_sorted_nodes(g)
+    enum = device_enumerate.PathEnumerator(g, device)
+    rank = torch.from_numpy(start_ranks(order, g.num_vertices)).to(device)
+    rows = enum(order, cfg.path_length)
+    tables = dp._vertex_tables(eng.vertices, device)
+    keyt = dp.key_tables_device(eng.vertices, device)
+    key = dp.composite_sort_key_device(eng.paths, eng.vertices, keyt)
+    _, perm = torch.sort(key, stable=True)
+    vids, _ = dp.permute_fold(eng.paths, perm, tables, block_size)
+    progs = {
+        "enumerate": cuda_ms(lambda: enum(order, cfg.path_length), 3),
+        "dedup": cuda_ms(lambda: rows[device_enumerate.dedup_mask(rows,
+                                                                  rank)], 3),
+        "key": cuda_ms(lambda: dp.composite_sort_key_device(
+            eng.paths, eng.vertices, keyt), 3),
+        "sort": cuda_ms(lambda: torch.sort(key, stable=True), 3),
+        "permute_fold": cuda_ms(lambda: dp.permute_fold(
+            eng.paths, perm, tables, block_size), 3)}
+    rec["device_programs_ms"] = progs
+    rec["directed_paths"] = int(rows.shape[0])
+    print(f"pe_table: device programs alone (ms, CUDA events; "
+          f"{rec['directed_paths']} directed paths): " + json.dumps(progs))
+    del rows, key, perm, tables
+    rec["d2h_ms"] = _d2h_ms(vids)
+    print(f"pe_table: vid table ({vids.numel() * 4} B) to the host, wall "
+          "ms, each into fresh memory: " + json.dumps(rec["d2h_ms"]))
+    del vids
+    rec["modes"] = _compare_modes(g, oracle["engine"], eng)
+    print("pe_table: search ms, array vs table mode: "
+          + json.dumps(rec["modes"]))
     return launches
 
 
-def pge_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> int:
+def _d2h_ms(vids) -> dict:
+    """Wall ms of copying ``vids`` to the host three times each way:
+    into a fresh pinned buffer (allocation included) and into fresh
+    pageable memory (``.cpu()``).  Every copy is kept until the end, so
+    no allocation is served from a cache."""
+    import torch
+    kept, out = [], {}
+    for name, copy in (
+            ("pinned", lambda: torch.empty(vids.shape, dtype=vids.dtype,
+                                           pin_memory=True).copy_(vids)),
+            ("pageable", vids.cpu)):
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kept.append(copy())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(torch.equal(kept[-1][:1000], vids[:1000].cpu()),
+                  f"{name} copy of the vid table differs")
+        out[name] = ms
+    del kept
+    return out
+
+
+def _compare_modes(g, array_eng, table_eng) -> dict:
+    """``search`` wall ms of the array-mode and table-mode PE indexes on
+    MODE_QUERIES queries, in turns array, table, table, array per query
+    and union; each layout's time per query is the mean of its two
+    turns.  Candidates must be equal."""
+    from gnnpe_tpu_torch.io.datasets import sample_query
+    out = {}
+    tables = [array_eng._stack([array_eng._query_table(
+        sample_query(g, QUERY_SIZE, seed=s))]) for s in MODE_QUERIES]
+    for union in ("host", "device"):
+        times = {"array": [], "table": []}
+        for i, q in enumerate(tables):
+            got = {}
+            for mode in ("array", "table", "table", "array"):
+                eng = array_eng if mode == "array" else table_eng
+                t0 = time.perf_counter()
+                got[mode] = eng.searcher.search(q, union=union)
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+            check(len(got["array"]) == len(got["table"]) and all(
+                np.array_equal(a, b)
+                for a, b in zip(got["array"], got["table"])),
+                f"modes: query {i} {union}: table candidates differ")
+        per = {m: np.asarray(t).reshape(-1, 2).mean(1)
+               for m, t in times.items()}
+        ratio = per["table"] / per["array"]
+        out[union] = dict(
+            array=_percentiles(per["array"]), table=_percentiles(per["table"]),
+            ratio_p25_p50_p75=[float(x) for x in
+                               np.percentile(ratio, [25, 50, 75])],
+            table_faster=int((ratio < 1).sum()), queries=len(ratio))
+    return out
+
+
+def pge_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> tuple:
     from gnnpe_tpu_torch.config import PGEConfig
     from gnnpe_tpu_torch.embed.vde import gen_vde_host
     from gnnpe_tpu_torch.engine import PGEEngine
@@ -302,11 +502,43 @@ def pge_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> int:
     host = _checked_host_vde(g, cfg, eng, device)
     wants = _pge_oracle(g, cfg, host, lambda q: gen_vde_host(q, cfg.vde_dim),
                         queries)
+    counts = []
     for i, (q, want) in enumerate(zip(queries, wants)):
-        count = refinement(g, q, want, cfg.max_answers, engine="native")
-        _check_query("pge", i, runs, want, count)
+        counts.append(refinement(g, q, want, cfg.max_answers,
+                                 engine="native"))
+        _check_query("pge", i, runs, want, counts[-1])
     print(f"pge: {len(queries)} queries x {sorted(runs)} equal the "
           "flat f64 oracle and native refinement")
+    return launches, dict(group=eng.group, label_group=eng.label_group,
+                          wants=wants, counts=counts)
+
+
+def pge_device_phase(g, queries, device, record, oracle,
+                     block_size=BLOCK_SIZE) -> int:
+    """PGE with its path groups folded on the card (``offline(device=
+    True)``, the main path), held to the PGE phase's groups and oracle;
+    then the fold timed alone.  Returns the main path's A1 launches."""
+    from gnnpe_tpu_torch.config import PGEConfig
+    from gnnpe_tpu_torch.embed.pde import path_groups_device
+    from gnnpe_tpu_torch.engine import PGEEngine
+    from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
+    cfg = PGEConfig.from_cli(l=2, e=2, n=MAX_ANSWERS)
+    eng = PGEEngine(cfg, g, device)
+    runs, launches = _engine_phase("pge_device", eng, queries, device,
+                                   record, block_size, dict(device=True))
+    check(np.array_equal(eng.group, oracle["group"])
+          and np.array_equal(eng.label_group, oracle["label_group"]),
+          "pge_device: device path groups differ from host path_groups")
+    for i in range(len(queries)):
+        _check_query("pge_device", i, runs, oracle["wants"][i],
+                     oracle["counts"][i])
+    order = degree_sorted_nodes(g)
+    fold_ms = cuda_ms(lambda: path_groups_device(
+        eng.vertices, g, order, cfg.path_length, cfg.pde_dim, device), 3)
+    record["pge_device"]["device_programs_ms"] = {"path_groups": fold_ms}
+    print(f"pge_device: groups bit-equal to host path_groups; "
+          f"{len(queries)} queries x {sorted(runs)} equal the PGE oracle; "
+          f"path_groups_device alone {fold_ms:.2f} ms (CUDA events)")
     return launches
 
 
@@ -525,20 +757,36 @@ def main() -> int:
 
     rows = kernel_phase(g, device, record)
     ell_rows = ell_phase(g, device, record)
-    torch.cuda.reset_peak_memory_stats()
-    launches = pe_phase(g, queries, device, record)
-    record["pe"]["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    launches += pge_phase(g, queries, device, record)
-    record["pge"]["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak(prefix, base=0):
+        record[prefix]["peak_device_bytes"] = (
+            torch.cuda.max_memory_allocated() - base)
+
+    fresh()
+    launches, pe_oracle = pe_phase(g, queries, device, record)
+    peak("pe")
+    fresh()
+    base = torch.cuda.memory_allocated()      # the array-mode PE index
+    launches += pe_table_phase(g, queries, device, record, pe_oracle)
+    peak("pe_table", base)
+    del pe_oracle
+    fresh()
+    a1, pge_oracle = pge_phase(g, queries, device, record)
+    launches += a1
+    peak("pge")
+    fresh()
+    launches += pge_device_phase(g, queries, device, record, pge_oracle)
+    peak("pge_device")
+    del pge_oracle
+    fresh()
     a1, a2 = train_phase(g, device, record, len(record["ell_layout"]["tables"]))
     launches += a1
-    record["train"]["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    peak("train")
     check("jax" not in sys.modules, "the port imported jax")
 
     print("record: " + json.dumps(record))

@@ -1,16 +1,21 @@
 """Trained-embedding payoff on one device (counterpart of
-gnnpe_tpu/frontends/train_payoff.py, PGE variant).
+gnnpe_tpu/frontends/train_payoff.py with ``device=True``).
 
 Trains a PathGNN with the discriminative dominance objective
 (models/train.py), serves it through the unchanged resident device
 search and host refinement (engine.py with ``embedder=``), and measures
 on held-out tree queries what training buys over the fixed label-seeded
-VDE: the candidate-set size and the online latency by stage.  PGE's
-answers are exact, so any dominance-preserving embedding must give the
-same answers; ``run`` asserts it per query.
+VDE: the candidate-set size and the online latency by stage.  The PGE
+variant builds its groups on the device (``offline(device=True)``); the
+PE variant enumerates its paths and builds its table-mode index there
+(``offline(device=True)``, ``build_index(table=True)``).  PGE's answers
+are exact, so any dominance-preserving embedding must give the same
+answers; PE's counts can in principle depend on the candidate sets (the
+reference's one-orientation dedup), and ``run`` asserts equality per
+query for both as gnnpe_tpu does, so such a case would be loud.
 
     python -m gnnpe_tpu_torch.frontends.train_payoff --dataset dblp \\
-        --device cuda
+        --device cuda [--variant pe]
 
 Prints one JSON row per embedder to stdout; writes files only where
 ``--out`` (JSON lines, appended) or ``--md`` (a table) name them.
@@ -76,14 +81,15 @@ class Payoff:
 
 def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
         steps: int = 300, vde_dim: int = 2, l: int = 2, seed: int = 0,
-        learning_rate: float = 1e-2, max_answers: int = 100_000, *,
-        device) -> Payoff:
-    """Fixed VDE, then a trained PathGNN, each served by a resident PGE
-    engine on ``device`` over the same held-out queries."""
+        learning_rate: float = 1e-2, max_answers: int = 100_000,
+        variant: str = "pge", *, device) -> Payoff:
+    """Fixed VDE, then a trained PathGNN, each served by a resident
+    engine of ``variant`` ("pge" or "pe") built on ``device`` over the
+    same held-out queries."""
     import torch
 
-    from gnnpe_tpu_torch.config import PGEConfig
-    from gnnpe_tpu_torch.engine import PGEEngine
+    from gnnpe_tpu_torch.config import PEConfig, PGEConfig
+    from gnnpe_tpu_torch.engine import PEEngine, PGEEngine
     from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
     from gnnpe_tpu_torch.io.datasets import load_dataset, sample_query
     from gnnpe_tpu_torch.models.embedder import model_embedder
@@ -92,15 +98,22 @@ def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
     from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
     from gnnpe_tpu_torch.utils.device import as_device
 
+    if variant not in ("pe", "pge"):
+        raise ValueError(f"variant must be 'pe' or 'pge', got {variant!r}")
     device = as_device(device)
     g = load_dataset(dataset, seed=seed)
     # Refinement emission is capped (the reference's -n flag): the
     # payoff under test is the filter, not match enumeration.
-    cfg = PGEConfig.from_cli(l=l, e=vde_dim, p=5, n=max_answers)
+    cfg = (PGEConfig if variant == "pge" else PEConfig).from_cli(
+        l=l, e=vde_dim, p=5, n=max_answers)
 
     def make_engine(embedder=None):
-        eng = PGEEngine(cfg, g, device, embedder=embedder)
-        return eng.offline().build_index().attach_device(device)
+        if variant == "pge":
+            eng = PGEEngine(cfg, g, device, embedder=embedder)
+            return eng.offline(device=True).build_index().attach_device(
+                device)
+        eng = PEEngine(cfg, g, device, embedder=embedder)
+        return eng.offline(device=True).build_index(table=True)
 
     # Held-out queries: seeds disjoint from the training pair draws.
     qs = [sample_query(g, query_size, tree=True, seed=10_000 + seed + i)
@@ -109,11 +122,12 @@ def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
     print(f"[payoff:{dataset}] fixed VDE: cands={base['cand_sum_mean']:.0f}"
           f" p50={base['online_p50_ms']:.1f}ms", file=sys.stderr)
 
-    # Training pairs come from the deduplicated 3-vertex paths (PGE's
-    # groups fold the same structure), subsampled to bound the cost of
-    # embedding every path each step.
-    train_paths, _ = enumerate_paths(g, degree_sorted_nodes(g),
-                                     max(l + 1, 2), dedup=True)
+    # Training pairs come from the deduplicated paths (PGE's groups
+    # fold 3-vertex paths; PE indexes its own length), subsampled to
+    # bound the cost of embedding every path each step.
+    train_paths, _ = enumerate_paths(
+        g, degree_sorted_nodes(g),
+        max(l + 1, 2) if variant == "pge" else cfg.path_length, dedup=True)
     if len(train_paths) > MAX_TRAIN_PATHS:
         sel = np.random.RandomState(seed + 3).choice(
             len(train_paths), size=MAX_TRAIN_PATHS, replace=False)
@@ -139,7 +153,7 @@ def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
           f"(-{red:.1f}%) p50={tr['online_p50_ms']:.1f}ms "
           f"train={train_s:.1f}s loss {state.history[0]:.4f}->"
           f"{state.history[-1]:.4f}", file=sys.stderr)
-    common = dict(dataset=dataset, variant="pge", vde_dim=vde_dim, l=l,
+    common = dict(dataset=dataset, variant=variant, vde_dim=vde_dim, l=l,
                   queries=queries, engine="device-packed",
                   device=str(device))
     rows = [
@@ -184,7 +198,8 @@ def write_md(rows, path: str) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Train a PathGNN and serve it through PGE (port).")
+        description="Train a PathGNN and serve it through PE or PGE "
+                    "(port).")
     ap.add_argument("--dataset", default="yeast")
     ap.add_argument("--queries", type=int, default=20)
     ap.add_argument("--query-size", type=int, default=8)
@@ -194,6 +209,7 @@ def main(argv=None):
     ap.add_argument("--l", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-answers", type=int, default=100_000)
+    ap.add_argument("--variant", default="pge", choices=["pe", "pge"])
     ap.add_argument("--device", required=True,
                     help="torch device for training, VDE and the search "
                          "(e.g. cuda, cuda:0, cpu)")
@@ -204,7 +220,7 @@ def main(argv=None):
                query_size=args.query_size, steps=args.steps,
                vde_dim=args.vde_dim, l=args.l, seed=args.seed,
                learning_rate=args.lr, max_answers=args.max_answers,
-               device=args.device).rows
+               variant=args.variant, device=args.device).rows
     for r in rows:
         print(json.dumps(r))
     if args.out:

@@ -3,6 +3,8 @@ name one, and asking for CUDA where there is none raises."""
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -19,3 +21,13 @@ def as_device(device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def free_bytes(device) -> int:
+    """Memory free for new tensors on ``device``: the card's free memory
+    (``torch.cuda.mem_get_info``) for CUDA, available host RAM for the
+    CPU."""
+    dev = as_device(device)
+    if dev.type == "cuda":
+        return int(torch.cuda.mem_get_info(dev)[0])
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")

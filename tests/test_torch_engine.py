@@ -134,6 +134,7 @@ def test_attach_device_cuda_raises_without_cuda(pe_pair):
 _SLICE = """
 import sys
 import numpy as np
+import torch
 from gnnpe_tpu_torch.config import PEConfig, PGEConfig
 from gnnpe_tpu_torch.engine import PEEngine, PGEEngine
 from gnnpe_tpu_torch.frontends import cli
@@ -150,6 +151,25 @@ for cls, cfg in ((PEEngine, PEConfig.from_cli(l=2, e=2)),
     eng.attach_device("cpu")
     assert eng.online(q).answer_count > 0
     eng.online_many([q, q], union="device")
+# The device offline build, a table-mode search, save and load.
+from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
+from gnnpe_tpu_torch.index.device_packed import TablePESearch
+from gnnpe_tpu_torch.paths import pipeline
+pe = PEEngine(PEConfig.from_cli(l=2, e=2), g, "cpu").offline(device=True)
+pe.build_index(block_size=16, table=True)
+want = pe.online(q, union="device")
+assert want.answer_count > 0 and isinstance(pe.searcher, TablePESearch)
+pe.searcher.save(sys.argv[1])
+pe.searcher = TablePESearch.load(sys.argv[1], pe.vertices, "cpu")
+assert pe.online(q).answer_count == want.answer_count
+order = degree_sorted_nodes(g)
+paths, idx, _ = pipeline.offline_build_pipelined(g, order, 3, pe.vertices,
+                                                 "cpu", block_size=16)
+assert torch.equal(paths, pe.paths) and torch.equal(idx.d_vids,
+                                                     pe.searcher.d_vids)
+pipeline.offline_pipelined(g, order, 3, np.ones((g.labels_count, 2)), "cpu")
+pge = PGEEngine(PGEConfig.from_cli(l=2, e=2), g, "cpu").offline(device=True)
+assert pge.build_index(block_size=16).attach_device("cpu").online(q).answer_count
 model = gnn.PathGNN(dim=2, labels_count=g.labels_count, device="cpu")
 paths = np.random.RandomState(0).randint(0, g.num_vertices, (64, 3))
 st = train.fit(model, g, paths, num_steps=3, batch_size=32,
@@ -160,10 +180,11 @@ print("no-jax-ok")
 """
 
 
-def test_port_slice_never_imports_jax():
+def test_port_slice_never_imports_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
-    res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
+    res = subprocess.run([sys.executable, "-c", _SLICE,
+                          str(tmp_path / "index.npz")], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "no-jax-ok" in res.stdout
