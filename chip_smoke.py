@@ -6,10 +6,14 @@
 1. Requires a CUDA device and prints the card's name and power limit.
 2. Builds the CUDA kernels from gnnpe_tpu_torch/csrc (and the host C++
    refinement engine).
-3. Kernel phase: the neighbour-sum SpMM against its plain PyTorch
+3. Kernel phase: the neighbour-sum SpMM (A1) against its plain PyTorch
    version on the card, on the dblp-rung graph — f64 at the VDE width
    (D=2) and f32 at D=128 — required bit-equal (both add in the same
-   order), with both times.
+   order); timed in turns plain, kernel, kernel, plain, beside one
+   library call of the same function (``torch.sparse.mm`` of the CSR
+   adjacency, which the port never calls), the kernel alone on the card
+   (replayed from a CUDA graph) and with L2 flushed, its bound from the
+   bytes, and the rate of the bytes it gathers.
 4. PE phase: the exact online query at the dblp rung (317,080 vertices,
    1,049,866 edges; PE -l 2, 3-vertex paths, 512-entry blocks, answers
    capped at 100,000) over the host-built array-mode index: 8 tree
@@ -35,15 +39,20 @@
    the card — whose groups must equal phase 6's bit for bit; the fold is
    timed alone with CUDA events.
 8. A2 phase: the ELL gather-sum kernel on the dblp graph's binned
-   layout — ``BinnedEllDevice.apply_perm`` through the kernel against
-   ``gather_sum_plain`` in f32 at the trainer's width (D=2) and D=128,
-   required bit-equal, with both times; the autograd backward of
+   layout — ``BinnedEllDevice.apply_perm`` (one launch per level of
+   its launch plan) against the plan walked over ``gather_sum_plain``
+   in f32 at the trainer's width (D=2) and D=128, required bit-equal;
+   timed as in phase 3, the library call being
+   ``torch.nn.functional.embedding_bag`` over the same tables (it
+   leaves out the pad correction); the autograd backward of
    ``symmetric_aggregate`` and of A1's ``NeighborSum`` bit-equal to the
    forward of the cotangent.
 9. Train phase: ``train_payoff.run`` at the dblp rung (PGE, D=2, 300
-   steps, binned aggregation, 8 held-out queries).  A2 must launch in
-   every step's forward and backward; every loss finite and the last
-   below the first; every trained answer equal to the fixed-VDE answer;
+   steps, binned aggregation, 8 held-out queries).  A2 must launch
+   ``launches_per_apply`` times in every step's forward and in its
+   backward; every loss finite, the last below the first, and the first
+   and last equal to the values earlier revisions of the port recorded
+   for this seed; every trained answer equal to the fixed-VDE answer;
    every trained candidate set equal to the flat f64 host filter on the
    embedder's own VDE; the card's f64 trained VDE within rtol 1e-12 of
    a numpy forward of the same weights.  Then a 50-step
@@ -51,16 +60,17 @@
    batches (the binned run's first chunk) must track the binned loss
    history within rtol 1e-3.
 
-The card's f64 data-graph VDE must equal gnnpe_tpu's numpy ``gen_vde``
-(re-exported as ``gen_vde_host``).  Every query's candidates must equal
-the flat f64 host filter, run on that numpy VDE for the data graph and
-every query (so it shares no code with the port's VDE, the packed index
-or the kernel), and every answer count must equal native refinement on
+The card's f64 data-graph VDE must equal the port's numpy
+``gen_vde_host``.  Every query's candidates must equal the flat f64 host
+filter, run on that numpy VDE for the data graph and every query (so it
+shares no code with the torch VDE, the packed index or the kernels), and
+every answer count must equal native refinement on
 those candidates; the table and device phases share the oracle of the
 phase before them.  Each kernel's launch count over the main path of
 the phases that run it (A1: PE, PE table, PGE, PGE device and train;
 A2: train) must be > 0, and the index tensors must live on the card.
-Any failure exits non-zero.  The full record is printed as one
+At the end neither ``jax`` nor any module of ``gnnpe_tpu`` may have been
+imported.  Any failure exits non-zero.  The full record is printed as one
 ``record: {...}`` line; the second-to-last line is the kernels record,
 the last is {"ok": true, "device": {...}}.
 """
@@ -69,6 +79,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -84,6 +95,14 @@ KERNELS = ("spmm_csr", "ell_gather_sum")
 TRAIN_STEPS = 300
 TRAIN_QUERIES = 8
 SEGMENT_STEPS = 50        # the binned run's first chunk of batches
+# First and last loss of the 300-step binned fit from seed 0, as the
+# port's earlier revisions recorded them (4 digits): the kernels' sums
+# did not move, so neither may these.
+TRAIN_LOSS_FIRST_LAST = (0.7733, 0.7234)
+# The card's published peaks: HBM bytes/s, and f32 FLOP/s outside the
+# tensor cores (taken for f64 too, which is no faster).
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = 67e12
 
 
 def check(cond, msg: str) -> None:
@@ -105,21 +124,73 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _turns(plain_fn, kern, plain_iters, kern_iters) -> dict:
-    """CUDA-event times in turns within one call: plain, kernel, kernel,
-    plain."""
-    p1, k1, k2, p2 = (cuda_ms(plain_fn, plain_iters),
-                      cuda_ms(kern, kern_iters), cuda_ms(kern, kern_iters),
-                      cuda_ms(plain_fn, plain_iters))
-    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                turns_ms=[p1, k1, k2, p2])
+def graph_ms(fn, calls: int = 20, replays: int = 20) -> float:
+    """Device time of one ``fn()`` with the host left out: ``calls`` of
+    them captured in a CUDA graph, replayed ``replays`` times (L2 warm)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, replays) / calls
+
+
+def cold_ms(fn, iters: int = 20) -> float:
+    """CUDA events round single calls of ``fn``, each after a 256 MB
+    write, so that it finds L2 flushed."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def _measure(plain_fn, kern, library_fn, bytes_moved, operations,
+             bytes_gathered) -> dict:
+    """One shape's times, in turns within one call (plain, kernel,
+    kernel, plain by CUDA events, host path included), the library call
+    beside them, the kernel alone on the card and with L2 flushed, and
+    its bound: the larger of ``bytes_moved`` (each input read once, each
+    output written once) over the card's memory rate and ``operations``
+    over its f32 rate."""
+    p1, k1, k2, p2 = (cuda_ms(plain_fn, 5), cuda_ms(kern, 50),
+                      cuda_ms(kern, 50), cuda_ms(plain_fn, 5))
+    by_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    by_ops = operations / PEAK_FLOP_S * 1e3
+    row = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+               turns_ms=[p1, k1, k2, p2], library_ms=cuda_ms(library_fn, 20),
+               device_ms=graph_ms(kern), cold_ms=cold_ms(kern),
+               bound_ms=max(by_bytes, by_ops),
+               bound_by="bytes" if by_bytes >= by_ops else "operations",
+               bytes_moved=int(bytes_moved), bytes_gathered=int(bytes_gathered))
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["device_share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    row["gathered_bytes_per_s"] = bytes_gathered / (row["device_ms"] * 1e-3)
+    return row
 
 
 def _print_turns(what, row) -> None:
     t = row["turns_ms"]
     print(f"{what}: bit-equal to plain; kernel {row['ms']:.4f} ms, plain "
           f"{row['plain_ms']:.4f} ms (plain, kernel, kernel, plain = "
-          f"{t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.4f})")
+          f"{t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.4f}); library "
+          f"{row['library_ms']:.4f} ms; on the card alone "
+          f"{row['device_ms']:.4f} ms, L2 flushed {row['cold_ms']:.4f} ms; "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({row['bytes_moved']} B): {100 * row['share_of_bound']:.1f} % "
+          f"of it by events, {100 * row['device_share_of_bound']:.1f} % on "
+          f"the card; gathers {row['gathered_bytes_per_s'] / 1e12:.3f} TB/s")
 
 
 def build_phase(record) -> None:
@@ -142,7 +213,14 @@ def build_phase(record) -> None:
         print(f"built {name} in {secs:.2f} s: {so}")
         log = so.with_suffix(".log")
         if log.exists():
-            print(log.read_text().strip())
+            # nvcc's resource report, one line per library (the file
+            # keeps every kernel's).
+            text = log.read_text()
+            regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+            spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                                 text)]
+            print(f"  {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+                  f"at most {max(spills)} bytes of spill stores ({log})")
     t0 = time.perf_counter()
     tri = CSRGraph.from_edges(3, np.array([[0, 1], [1, 2], [0, 2]]),
                               np.zeros(3, np.int64))
@@ -168,6 +246,7 @@ def kernel_phase(g, device, record) -> dict:
             g.num_vertices, 128).astype(np.float32)).to(device),
     }
     rows = {}
+    v, arcs = g.num_vertices, int(nbr.numel())
     for name, x in inputs.items():
         nx, vde = spmm.neighbor_sum(off, nbr, x, with_vde=True)
         plain = spmm.neighbor_sum_plain(off, nbr, x)
@@ -176,13 +255,26 @@ def kernel_phase(g, device, record) -> dict:
         check(torch.equal(nx, plain) and torch.equal(vde, x + plain),
               f"spmm_csr {name} differs from its plain version "
               f"(max abs err {err})")
-
-        rows[name] = dict(
-            max_abs_err=err,
-            bytes_gathered=int(nbr.numel() * x.shape[1] * x.element_size()),
-            **_turns(lambda: spmm.neighbor_sum_plain(off, nbr, x),
-                     lambda: spmm.neighbor_sum(off, nbr, x), 5, 50))
+        # The library's version of the same function, built outside the
+        # timed window; the port never calls it.
+        adj = torch.sparse_csr_tensor(
+            off, nbr, torch.ones(arcs, dtype=x.dtype, device=device),
+            size=(v, v))
+        lib = torch.sparse.mm(adj, x)
+        check(torch.allclose(lib, plain, rtol=1e-5 if x.dtype ==
+                             torch.float32 else 1e-12),
+              f"torch.sparse.mm {name} differs from the plain version")
+        d, es = x.shape[1], x.element_size()
+        # Bound: offsets and neighbours read once, x read once, nx
+        # written once; one add per arc and column.
+        rows[name] = dict(max_abs_err=err, **_measure(
+            lambda: spmm.neighbor_sum_plain(off, nbr, x),
+            lambda: spmm.neighbor_sum(off, nbr, x),
+            lambda: torch.sparse.mm(adj, x),
+            bytes_moved=4 * (v + 1) + 4 * arcs + 2 * v * d * es,
+            operations=arcs * d, bytes_gathered=arcs * d * es))
         _print_turns(f"spmm_csr {name}", rows[name])
+        del adj, lib
     record["kernel"] = rows
     return rows
 
@@ -274,7 +366,7 @@ def _check_query(prefix, i, runs, want, count) -> None:
 
 
 def _checked_host_vde(g, cfg, eng, device):
-    """gnnpe_tpu's numpy VDE of ``g``, after checking that the engine's
+    """The port's numpy VDE of ``g``, after checking that the engine's
     VDE (computed on ``device``) equals it bit for bit."""
     from gnnpe_tpu_torch.embed.vde import gen_vde_host
     host = gen_vde_host(g, cfg.vde_dim)
@@ -571,6 +663,7 @@ def ell_phase(g, device, record) -> dict:
     gather_sum_plain, and the two autograd backwards; returns the f32
     rows of the kernels record (D=2 is the trainer's shape)."""
     import torch
+    import torch.nn.functional as F
     from gnnpe_tpu_torch.graph.csr import to_device
     from gnnpe_tpu_torch.ops import ell, spmm
     t0 = time.perf_counter()
@@ -580,7 +673,15 @@ def ell_phase(g, device, record) -> dict:
     record["ell_layout"] = dict(
         build_s=time.perf_counter() - t0, num_slots=lay.num_slots,
         num_head=lay.num_head, num_hub_arcs=lay.num_hub_arcs, tables=tables,
-        padded_tables=sum(pc is not None for _, pc in lay.head + lay.classes))
+        padded_tables=sum(pc is not None for _, pc in lay.head + lay.classes),
+        launches_per_apply=lay.launches_per_apply,
+        levels=[len(lv.tables) for lv in lay.plan.levels])
+    check(lay.launches_per_apply == len(lay.plan.levels) < len(tables),
+          "the dblp layout's plan does not launch once per level")
+
+    def bag(buf, tbl, padcnt, out):
+        # embedding_bag sums each table row's bag; no pad correction.
+        out.copy_(F.embedding_bag(tbl, buf, mode="sum"))
     print("ell layout: " + json.dumps(record["ell_layout"]))
     rng = np.random.RandomState(1)
     rows = {}
@@ -594,12 +695,20 @@ def ell_phase(g, device, record) -> dict:
         check(torch.equal(got, plain), f"ell_gather_sum D={d} differs from "
               f"its plain version (max abs err {err})")
         name = f"f32_d{d}"
-        rows[name] = dict(
-            max_abs_err=err, bytes_gathered=lay.num_slots * d * 4,
-            **_turns(lambda: lay.apply_perm(h, gather=ell.gather_sum_plain),
-                     lambda: lay.apply_perm(h), 5, 50))
-        _print_turns(f"ell_gather_sum apply_perm {name} ({len(tables)} "
-                     "launches)", rows[name])
+        # Bound, summed over the plan: every table and padcnt read once
+        # and its rows written once; every level's input read once.
+        moved = sum(4 * t.rows * t.width + 4 * t.rows * d
+                    + (4 * t.rows if t.padcnt is not None else 0)
+                    for lv in lay.plan.levels for t in lv.tables)
+        moved += sum(4 * lv.src_rows * d for lv in lay.plan.levels)
+        rows[name] = dict(max_abs_err=err, **_measure(
+            lambda: lay.apply_perm(h, gather=ell.gather_sum_plain),
+            lambda: lay.apply_perm(h),
+            lambda: lay.apply_perm(h, gather=bag),
+            bytes_moved=moved, operations=lay.num_slots * d,
+            bytes_gathered=lay.num_slots * d * 4))
+        _print_turns(f"ell_gather_sum apply_perm {name} "
+                     f"({lay.launches_per_apply} launches)", rows[name])
 
     cot = torch.from_numpy(rng.rand(g.num_vertices, 2).astype(np.float32)
                            ).to(device)
@@ -637,7 +746,7 @@ def _numpy_forward(model, g) -> np.ndarray:
     return h
 
 
-def train_phase(g, device, record, n_tables) -> tuple:
+def train_phase(g, device, record, launches_per_apply) -> tuple:
     """train_payoff.run at the dblp rung (the main path: counts set to 0
     just before, read just after), then its checks and the segment fit;
     returns the (A1, A2) launches of the run."""
@@ -672,14 +781,18 @@ def train_phase(g, device, record, n_tables) -> tuple:
           f"{trained_row['online_p50_ms']:.2f} ms")
     check(aggregation == "binned", "dblp did not train binned")
     # One forward and one backward apply_perm per step, one launch per
-    # table each: the backward went through the kernel too.
-    check(launches[1] == 2 * n_tables * TRAIN_STEPS,
+    # level each: the backward went through the kernel too.
+    check(launches[1] == 2 * launches_per_apply * TRAIN_STEPS,
           f"{launches[1]} ell_gather_sum launches in fit, want "
-          f"{2 * n_tables * TRAIN_STEPS}")
+          f"{2 * launches_per_apply * TRAIN_STEPS}")
     check(launches[0] > 0, "train phase launched no spmm_csr kernel")
     check(np.isfinite(hist).all() and len(hist) == TRAIN_STEPS,
           "loss history not finite")
     check(hist[-1] < hist[0], f"loss did not fall: {hist[0]} -> {hist[-1]}")
+    check(all(abs(got - want) < 5e-5 for got, want in
+              zip((hist[0], hist[-1]), TRAIN_LOSS_FIRST_LAST)),
+          f"loss {hist[0]:.6f} -> {hist[-1]:.6f} left the recorded "
+          f"{TRAIN_LOSS_FIRST_LAST}")
 
     eng = pay.engine
     check(np.allclose(eng.vertices.vde, _numpy_forward(pay.state.params, g),
@@ -718,14 +831,14 @@ def train_phase(g, device, record, n_tables) -> tuple:
 
 
 def _kernel_row(name, replaces, launches, rows, main_shape) -> dict:
-    """One entry of the kernels record; ms and plain_ms at the main
-    path's shape."""
+    """One entry of the kernels record; the times and the bound at the
+    main path's shape."""
     return {"name": name, "route": "cuda",
             "source": f"gnnpe_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-            "ms": rows[main_shape]["ms"],
-            "plain_ms": rows[main_shape]["plain_ms"]}
+            **{k: rows[main_shape][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
 
 
 def main() -> int:
@@ -784,12 +897,16 @@ def main() -> int:
     peak("pge_device")
     del pge_oracle
     fresh()
-    a1, a2 = train_phase(g, device, record, len(record["ell_layout"]["tables"]))
+    a1, a2 = train_phase(g, device, record,
+                         record["ell_layout"]["launches_per_apply"])
     launches += a1
     peak("train")
-    check("jax" not in sys.modules, "the port imported jax")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "gnnpe_tpu"))
+    check(not foreign, f"the port imported {foreign}")
 
     print("record: " + json.dumps(record))
+    print(smi)
     print(json.dumps({"kernels": [
         _kernel_row("spmm_csr", "experiments/pallas_spmm.py:181", launches,
                     rows, "f64_d2"),

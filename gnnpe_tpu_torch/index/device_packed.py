@@ -54,11 +54,6 @@ from typing import List
 import numpy as np
 import torch
 
-# The host sort-key helpers are numpy; gnnpe_tpu's module imports no JAX
-# at module level.
-from gnnpe_tpu.index.device_packed import (_outward, composite_sort_key,
-                                           key_tables, path_sig,
-                                           sig_radix_of)
 from gnnpe_tpu_torch.config import EPSILON
 from gnnpe_tpu_torch.embed.pde import PathEmbeddings
 from gnnpe_tpu_torch.match.device_filter import (extract_candidates,
@@ -72,6 +67,82 @@ __all__ = ["CHUNK_ELEMS", "DevicePackedPESearch", "DevicePackedPGESearch",
            "PEQuery", "PGEQuery", "TablePESearch", "composite_sort_key",
            "composite_sort_key_device", "key_tables", "key_tables_device",
            "path_sig", "permute_fold", "sig_radix_of"]
+
+# ---- host sort-key helpers (numpy): the port's copy of gnnpe_tpu's -----
+
+
+def _outward(x: np.ndarray, up: bool, pad_rows: int = 0) -> np.ndarray:
+    """Conservatively-rounded f32 copy of an f64 table (outward nudge)
+    + optional zero pad rows."""
+    u = x.astype(np.float32)
+    if up:
+        bump = u.astype(np.float64) < x
+        u[bump] = np.nextafter(u[bump], np.float32("inf"))
+    else:
+        bump = u.astype(np.float64) > x
+        u[bump] = np.nextafter(u[bump], np.float32("-inf"))
+    if pad_rows:
+        u = np.concatenate(
+            [u, np.zeros((pad_rows, x.shape[1]), np.float32)])
+    return u
+
+
+def sig_radix_of(vertices) -> int:
+    """Radix of the label-signature fold — one definition shared by the
+    index build and the query-side signature (path_sig)."""
+    return int(vertices.labels.max(initial=0)) + 3
+
+
+def path_sig(labels_rows: np.ndarray, sig_radix: int) -> np.ndarray:
+    """int64[N] label signature of each row of int[N, L] per-position
+    labels — the EXACT fold composite_sort_key uses, so equal label
+    vectors always produce equal signatures (collisions from the 2^30
+    wrap only ever ADD candidates block ranges, never drop them)."""
+    sig = np.zeros(len(labels_rows), np.int64)
+    r = np.int64(sig_radix)
+    for j in range(labels_rows.shape[1]):
+        sig = ((sig * r + (labels_rows[:, j].astype(np.int64) + 2))
+               & ((1 << 30) - 1))
+    return sig
+
+
+def key_tables(vertices):
+    """Precomputed per-vertex tables for composite_sort_key — hoist out
+    of chunk loops: recomputing the outward-rounded vde copy is an
+    O(V·D) nextafter pass PER CALL, which at the synth100m rung's 1220
+    chunks was ~all of the recorded 903 s 'enumeration' time."""
+    return (_outward(vertices.vde, True),
+            np.int64(sig_radix_of(vertices)),
+            vertices.labels.astype(np.int64))
+
+
+def composite_sort_key(paths: np.ndarray, vertices,
+                       tables=None) -> np.ndarray:
+    """int64[P] index sort key: (label signature mod 2^30) << 32 |
+    order-preserving bits of -Σpde f32.  Pure host numpy — chunkable,
+    GIL-releasing, and independent across path chunks, which is what
+    lets the pipelined offline stage overlap key computation with
+    enumeration (paths/pipeline.py).  The key shapes block quality
+    only, never correctness — EXCEPT that the high 32 bits (the label
+    signature) also drive the per-query contiguous block-range prune
+    (TablePESearch.search), which is conservative by the
+    path_sig collision argument.
+
+    ``tables``: optional key_tables(vertices) result; pass it when
+    calling per chunk (see key_tables on why)."""
+    p, l = paths.shape
+    vde_up, sig_radix, lab_all = (key_tables(vertices)
+                                  if tables is None else tables)
+    sig = np.zeros(p, np.int64)
+    s32 = np.zeros(p, np.float32)
+    for j in range(l):
+        col = paths[:, j]
+        sig = (sig * sig_radix + (lab_all[col] + 2)) & ((1 << 30) - 1)
+        s32 = s32 + vde_up[col].sum(axis=1)
+    bi = (-s32).view(np.int32).astype(np.int64) & 0xFFFFFFFF
+    u = np.where(bi >= (1 << 31), 0xFFFFFFFF - bi, bi | (1 << 31))
+    return (sig << 32) | u
+
 
 # Bound on the elements of one [Q, rows, width] compare (phase 1 and
 # each phase-2 chunk): 128M bools.  Read at search time.

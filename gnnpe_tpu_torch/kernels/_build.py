@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with nvcc into a shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers, so a build
 takes seconds).  The library is built at first use into
 ``build/gnnpe_tpu_torch/`` at the checkout root, named by a hash of its
-source, so an edited source rebuilds and an unchanged one is reused.
+source and of the headers beside it (``csrc/*.cuh``), so an edited
+source rebuilds and an unchanged one is reused.
 There is no fallback: a missing nvcc or a failed build raises.
 """
 
@@ -30,14 +31,36 @@ _LIBS: dict = {}
 _c = ctypes
 # Every kernel entry point: (device, pointers..., sizes..., stream) -> int
 _SIGNATURES = {
+    # (device, offsets, neighbors, x, nx, vde, rows, d, vec, lanes,
+    #  long_rows, deal, stream)
     "spmm_csr": {
         name: [_c.c_int] + [_c.c_void_p] * 5
-        + [_c.c_longlong, _c.c_int, _c.c_void_p]
+        + [_c.c_longlong] + [_c.c_int] * 5 + [_c.c_void_p]
         for name in ("gnnpe_spmm_csr_f64", "gnnpe_spmm_csr_f32")},
+    # (device, level, buf, out, d, vec, lanes, blocks, stream)
     "ell_gather_sum": {
-        "gnnpe_ell_gather_sum_f32": [_c.c_int] + [_c.c_void_p] * 4
-        + [_c.c_longlong, _c.c_int, _c.c_int, _c.c_void_p]},
+        "gnnpe_ell_gather_sum_level_f32": [_c.c_int] + [_c.c_void_p] * 3
+        + [_c.c_int] * 4 + [_c.c_void_p],
+        "gnnpe_ell_max_tables": [], "gnnpe_ell_threads": []},
 }
+
+
+def pack_shape(d: int, elem_size: int, *pointers: int, min_lanes: int = 1):
+    """(vec, lanes) of a gather-sum launch over rows of ``d`` elements
+    of ``elem_size`` bytes (csrc/gather_rows.cuh): a lane owns ``vec``
+    columns — as many as fit 16 bytes, divide ``d`` and keep every
+    pointer aligned to the lane's load — and a row takes ``lanes`` lanes,
+    the power of two that covers its ``d / vec`` loads, at most 32
+    (wider rows loop over column tiles).  ``min_lanes`` halves ``vec``
+    while a row would get fewer lanes than that."""
+    vec = max(1, 16 // elem_size)
+    while vec > 1 and (d % vec or d < vec * min_lanes
+                       or any(p % (vec * elem_size) for p in pointers)):
+        vec //= 2
+    lanes = 1
+    while lanes < 32 and lanes * vec < d:
+        lanes *= 2
+    return vec, lanes
 
 
 def _nvcc() -> str:
@@ -52,6 +75,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> pathlib.Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(_CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -8,14 +8,15 @@ reference's f64 compares as they stand.  Thresholds (q - ε) are
 computed on the host with ``match.filter.eps_threshold`` and uploaded.
 
 ``extract_candidates`` (host: mask → sorted candidates per query
-vertex) is re-exported.
+vertex) is the port's copy of gnnpe_tpu's.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import List
 
-from gnnpe_tpu.match.device_filter import extract_candidates
+import numpy as np
+import torch
 
 __all__ = ["extract_candidates", "pe_mask_exact", "pge_mask_exact"]
 
@@ -42,3 +43,22 @@ def pge_mask_exact(d_labels, d_degrees, d_group_hi, d_lgroup_lo,
                (q_lgroup_hi[:, None, :] >= d_lgroup_lo[None])).all(-1)
     dom = (d_group_hi[None] >= q_group_lo_thresh[:, None, :]).all(-1)
     return ok & overlap & dom
+
+
+def extract_candidates(mask: np.ndarray, data_vids: np.ndarray,
+                       plan_vids: np.ndarray,
+                       num_query_vertices: int) -> List[np.ndarray]:
+    """Host: mask bool[Q, P] → sorted unique candidates per query vertex
+    (custom.h:429-433 semantics)."""
+    per_vertex: List[List[np.ndarray]] = [
+        [] for _ in range(num_query_vertices)]
+    l = plan_vids.shape[1]
+    for qi in range(mask.shape[0]):
+        hit = np.nonzero(mask[qi])[0]
+        if not len(hit):
+            continue
+        dv = data_vids[hit]
+        for k in range(l):
+            per_vertex[int(plan_vids[qi, k])].append(dv[:, k])
+    return [np.unique(np.concatenate(s).astype(np.int64))
+            if s else np.zeros(0, dtype=np.int64) for s in per_vertex]

@@ -1,5 +1,5 @@
 """Trainable GNN for path-dominance embeddings (counterpart of
-gnnpe_tpu/models/gnn.py, which imports JAX and so cannot be re-exported).
+gnnpe_tpu/models/gnn.py).
 
 Model: K layers of
     h^{k+1} = act( h^k @ W_self + (A h^k) @ W_nbr + b )

@@ -1,6 +1,5 @@
 """Training for the PathGNN family on one device (counterpart of
-gnnpe_tpu/models/train.py, which imports JAX and so cannot be
-re-exported).
+gnnpe_tpu/models/train.py).
 
 Training data: sampled (sub-path, super-path) pairs with a label-
 preserving vertex mapping, positives for the dominance hinge, and

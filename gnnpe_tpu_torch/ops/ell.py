@@ -1,14 +1,17 @@
 """Degree-binned ELL aggregation: scatter-free neighbour sums, forward
 and backward (counterpart of gnnpe_tpu/ops/ell.py's ``BinnedEll``).
 
-The host layout (``build_binned_ell``, the ``BinnedEll`` tables) is
-gnnpe_tpu's numpy builder, re-exported.  ``BinnedEllDevice`` uploads it
-once and aggregates in the permuted vertex space with ``gather_sum``:
-the hand-written CUDA kernel (csrc/ell_gather_sum.cu) for a CUDA tensor,
-``gather_sum_plain`` for a CPU tensor; any other device raises.  Both
-add a row's slots in ascending order from 0.0 and subtract the pad
-correction as a separate multiply and subtract, so on the card they are
-bit-equal.
+The host layout (``build_binned_ell``, the ``BinnedEll`` tables) is the
+port's own copy of gnnpe_tpu's numpy builder.  ``BinnedEllDevice``
+uploads it once, lays out a launch plan — one launch per dependency
+level: every width class and the first head level read ``h_perm``, each
+further head level reads the level before it — and aggregates in the
+permuted vertex space.  On a CUDA tensor each level is one launch of the
+hand-written kernel (csrc/ell_gather_sum.cu); on a CPU tensor the same
+plan is walked table by table over ``gather_sum_plain``; any other
+device raises.  Both add a row's slots in ascending order from 0.0 and
+subtract the pad correction as a separate multiply and subtract, so on
+the card they are bit-equal.
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
@@ -17,45 +20,281 @@ show that its main path went through the kernel.
 from __future__ import annotations
 
 import contextlib
-import threading
-from dataclasses import dataclass
-from typing import List, Optional, Tuple
+import ctypes
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from gnnpe_tpu.ops import ell as _host
-from gnnpe_tpu.ops.ell import DEFAULT_WIDTHS, BinnedEll
-from gnnpe_tpu.utils.device_probe import _table_lookup
+from gnnpe_tpu_torch.kernels._build import pack_shape
 from gnnpe_tpu_torch.utils.device import as_device
 
-__all__ = ["BinnedEll", "BinnedEllDevice", "DEFAULT_WIDTHS", "LAUNCHES",
-           "binned_aggregate", "build_binned_ell", "gather_sum",
-           "gather_sum_plain", "symmetric_aggregate"]
+__all__ = ["BinnedEll", "BinnedEllDevice", "DEFAULT_WIDTHS", "HUB_PRICES",
+           "LAUNCHES", "LaunchPlan", "binned_aggregate", "build_binned_ell",
+           "gather_sum", "gather_sum_plain", "symmetric_aggregate"]
 
 LAUNCHES = 0
 
-# The port has no device probe.  gnnpe_tpu prices hub columns with
-# utils/device_probe.device_constants(), which imports JAX and falls
-# back to the table's "cpu" row where that import fails, as it does on
-# the card.  The port pins that row, so it builds the same layout on
-# every machine and never imports JAX.
-HUB_PRICES = _table_lookup("cpu")
-_HUB_PRICES_LOCK = threading.Lock()
+# Width classes of the layout (gnnpe_tpu's default).
+DEFAULT_WIDTHS = (4, 8, 16, 32, 64)
+
+_HUB_PRECISIONS = ("hi_lo", "bf16", "f32")
+
+# What a hub column is priced with: (memory bytes/s, matmul flop/s,
+# gather seconds/row).  gnnpe_tpu measures these with a JAX device probe
+# and falls back to its table's "cpu" row where JAX is missing, as on
+# the card's machine.  The port has no probe: it pins that row (copied
+# here), so it builds the same layout on every machine; a caller that
+# has measured its device passes ``hub_prices=``.
+HUB_PRICES = (50e9, 1e12, 2e-9)
+
+# csrc/ell_gather_sum.cu: kMaxTables descriptors per launch, kThreads
+# threads per block (``_level_fn`` checks both against the built library).
+MAX_TABLES = 16
+THREADS = 256
+# With fewer lanes per row than this, a launch's work units are dealt
+# round-robin over its blocks (csrc/ell_gather_sum.cu): measured faster
+# with one lane per row and slower from two on (kernels/compare_gather.py).
+DEAL_BELOW_LANES = 2
+
+
+@dataclass
+class BinnedEll:
+    """Permutation-fused binned layout (+ optional dense hub product), on
+    the host: numpy tables, built by ``build_binned_ell``.
+
+    Vertices are relabelled by descending degree (``perm``/``rank``) and
+    split into width classes, each one gather table whose rows are a
+    contiguous range of the output.  Vertices wider than the widest
+    class (the head) are chunked into rows of that width and folded
+    back through one or more small second-level tables.
+
+    Mask-free padding: pad slots in every gather table point at row 0,
+    and the spurious contribution is removed with a rank-1 correction
+    ``out[i] -= padcnt[i] * buf[0]``.
+
+    Hub path: the highest-occurrence *sources* are pulled out of the
+    gather tables and their contribution is computed as ``B @ x[hubs]``
+    where ``B[i, j]`` counts hub j in N(perm[i]) (int8/int16).  Removing
+    hubs also shrinks residual degrees, cutting padding.  Precision per
+    mode: ``hi_lo`` (default) is a bf16 hi/lo split, two products with
+    f32 accumulation (~1e-3 relative at worst under cancellation: fine
+    for training and for candidate filtering, not bit-exact); ``f32`` is
+    one f32 product (auto-selected when any multiplicity exceeds 256,
+    where bf16 counts would round); ``bf16`` is a single bf16 product.
+    """
+    perm: np.ndarray            # int64[V]: new row i holds vertex perm[i]
+    rank: np.ndarray            # int64[V]: inverse (rank[v] = row of v)
+    class_tables: List[np.ndarray]  # int32[n_c, w_c], rows contiguous
+    class_padcnt: List[np.ndarray]  # f32[n_c] or None (no padding)
+    head_tables: List[np.ndarray]   # chunk fold levels for the head
+    head_padcnt: List[np.ndarray]   # f32[rows] or None, per fold level
+    num_head: int               # head vertices (first rows of output)
+    num_vertices: int
+    num_slots: int              # gather slots over RESIDUAL (non-hub) arcs
+    num_hub_arcs: int = 0       # arcs routed through the hub product
+    hub_rows: np.ndarray = None     # int32[H]: permuted rows of hubs
+    hub_counts: np.ndarray = None   # int8/int16[V, H] multiplicity B
+    hub_precision: str = "hi_lo"    # see class docstring
+
+
+def _select_hubs(num_v: int, neighbors: np.ndarray, feature_dim: int,
+                 max_hubs: int, hub_mem_budget: int, hub_prices):
+    """Pick hub sources worth routing through the dense product.
+
+    Include vertex i (by occurrence count in ``neighbors``) while the
+    gather time its arcs would cost (per-row cost from the device
+    calibration table) exceeds the marginal cost of one more B column:
+    V int8 bytes of HBM traffic plus two bf16 [V,1]x[1,D] matmul
+    slivers.  The hub count is additionally capped so the dense B
+    matrix fits ``hub_mem_budget`` bytes (int8 on device)."""
+    bw, flops, gather_row_s = hub_prices
+    occ = np.bincount(neighbors, minlength=num_v).astype(np.int64)
+    col_cost_s = num_v / bw + 4.0 * num_v * feature_dim / flops
+    thresh = max(4.0, col_cost_s / gather_row_s)
+    order = np.argsort(-occ, kind="stable")
+    n = int((occ[order] > thresh).sum())
+    n = min(n, max_hubs, num_v, max(0, hub_mem_budget // max(1, num_v)))
+    return order[:n]
+
+
+def _padcnt(tbl_filled: np.ndarray, pad_mask: np.ndarray):
+    """f32 pad-slot count per row, or None when the table is full."""
+    cnt = pad_mask.sum(1)
+    return cnt.astype(np.float32) if cnt.any() else None
 
 
 def build_binned_ell(offsets: np.ndarray, neighbors: np.ndarray,
-                     **kwargs) -> BinnedEll:
-    """gnnpe_tpu's ``build_binned_ell`` (same arguments), with hubs
-    priced by ``HUB_PRICES``."""
-    with _HUB_PRICES_LOCK:
-        saved = _host._device_constants
-        _host._device_constants = lambda: HUB_PRICES
-        try:
-            return _host.build_binned_ell(offsets, neighbors, **kwargs)
-        finally:
-            _host._device_constants = saved
+                     widths: Tuple[int, ...] = DEFAULT_WIDTHS,
+                     hub_matmul: bool = True,
+                     feature_dim_hint: int = 128,
+                     max_hubs: int = 2048,
+                     hub_precision: str = "hi_lo",
+                     hub_mem_budget: int = 256 << 20,
+                     hub_prices: Tuple[float, float, float] = HUB_PRICES
+                     ) -> BinnedEll:
+    """Build the degree-binned relabeled layout (host, O(E log V)).
 
+    With ``hub_matmul`` the top-occurrence sources are lifted out of
+    the gather tables into a dense count matrix contracted as a matrix
+    product (see BinnedEll docstring), priced by ``hub_prices`` =
+    (memory bytes/s, matmul flop/s, gather seconds/row); the ELL tables are then built over the
+    residual adjacency.  ``feature_dim_hint`` only tunes the hub-count
+    economics; any D works at apply time.  ``hub_mem_budget`` caps the
+    dense B matrix (bytes, int8) so power-law graphs at V≈1e6+ cannot
+    OOM the build.  When any hub multiplicity exceeds 256, a caller-
+    supplied bf16 ``hub_precision`` is auto-upgraded to "f32" (bf16
+    integer rounding starts at 257); pass hub_matmul=False to opt out.
+    """
+    if tuple(sorted(set(widths))) != tuple(widths):
+        raise ValueError(f"widths must be strictly increasing: {widths}")
+    if hub_precision not in _HUB_PRECISIONS:
+        raise ValueError(f"hub_precision {hub_precision!r} not in "
+                         f"{_HUB_PRECISIONS}")
+    num_v = len(offsets) - 1
+    offsets = np.asarray(offsets, dtype=np.int64)
+    neighbors = np.asarray(neighbors)
+
+    hub_rows = hub_counts = None
+    num_hub_arcs = 0
+    if hub_matmul and num_v and len(neighbors):
+        hubs = _select_hubs(num_v, neighbors, feature_dim_hint,
+                            max_hubs, hub_mem_budget, hub_prices)
+        if len(hubs):
+            nh = len(hubs)
+            hub_id = np.full(num_v, -1, dtype=np.int64)
+            hub_id[hubs] = np.arange(nh)
+            arc_dst = np.repeat(np.arange(num_v),
+                                np.diff(offsets).astype(np.int64))
+            j = hub_id[neighbors]
+            is_hub = j >= 0
+            num_hub_arcs = int(is_hub.sum())
+            # Sparse count build: O(hub_arcs) transient memory, then a
+            # single dense int8/int16 [V, H] fill (the matrix the product
+            # needs anyway, capped by hub_mem_budget in _select_hubs).
+            key = arc_dst[is_hub] * nh + j[is_hub]
+            uk, cnt = np.unique(key, return_counts=True)
+            cmax = int(cnt.max(initial=0))
+            assert cmax <= 32767, \
+                f"hub multiplicity {cmax} overflows int16"
+            # bf16 holds integers exactly only up to 256; past that the
+            # conversion in apply would silently round multiplicities.
+            if cmax > 256 and hub_precision != "f32":
+                hub_precision = "f32"
+            B = np.zeros((num_v, nh),
+                         dtype=np.int8 if cmax <= 127 else np.int16)
+            B[uk // nh, uk % nh] = cnt
+            hub_counts = B
+            # Residual adjacency: drop hub occurrences.
+            keep = ~is_hub
+            neighbors = neighbors[keep]
+            rdeg = np.bincount(arc_dst[keep],
+                               minlength=num_v).astype(np.int64)
+            offsets = np.concatenate([[0], np.cumsum(rdeg)])
+            hub_vertices = hubs
+
+    deg = np.diff(offsets).astype(np.int64)
+    wmax = widths[-1]
+    # Degree-descending stable order; rank = inverse permutation.
+    perm = np.argsort(-deg, kind="stable")
+    rank = np.empty(num_v, dtype=np.int64)
+    rank[perm] = np.arange(num_v)
+    deg_s = deg[perm]
+    num_head = int((deg_s > wmax).sum())
+    slots = 0
+
+    # ---- head: chunk into width-wmax rows, fold recursively ---------
+    head_tables: List[np.ndarray] = []
+    head_padcnt: List[np.ndarray] = []
+    if num_head:
+        h_deg = deg_s[:num_head]
+        chunks_per = -(-h_deg // wmax)
+        n_chunks = int(chunks_per.sum())
+        tbl0 = np.full((n_chunks, wmax), -1, dtype=np.int32)
+        c_start = np.cumsum(chunks_per) - chunks_per
+        arc_v = np.repeat(np.arange(num_head), h_deg)
+        starts = offsets[perm[:num_head]]
+        arc_pos = (np.arange(int(h_deg.sum()))
+                   - np.repeat(np.cumsum(h_deg) - h_deg, h_deg))
+        flat_nbr = neighbors[np.repeat(starts, h_deg) + arc_pos]
+        tbl0[c_start[arc_v] + arc_pos // wmax,
+             arc_pos % wmax] = rank[flat_nbr]
+        pad0 = tbl0 < 0
+        head_tables.append(np.where(pad0, 0, tbl0))
+        head_padcnt.append(_padcnt(tbl0, pad0))
+        slots += tbl0.size
+        # Fold chunk rows per head vertex (recursively if very deep).
+        counts, start = chunks_per, c_start
+        fold_w = 8
+        while True:
+            kmax = int(counts.max())
+            if kmax <= fold_w:
+                tbl = np.full((num_head, kmax), -1, dtype=np.int32)
+                iv = np.repeat(np.arange(num_head), counts)
+                pos = (np.arange(int(counts.sum()))
+                       - np.repeat(start, counts))
+                tbl[iv, pos] = np.arange(int(counts.sum()))
+                pad = tbl < 0
+                head_tables.append(np.where(pad, 0, tbl))
+                head_padcnt.append(_padcnt(tbl, pad))
+                slots += tbl.size
+                break
+            sub = -(-counts // fold_w)
+            s_start = np.cumsum(sub) - sub
+            tbl = np.full((int(sub.sum()), fold_w), -1, dtype=np.int32)
+            iv = np.repeat(np.arange(num_head), counts)
+            pos = np.arange(int(counts.sum())) - np.repeat(start, counts)
+            tbl[s_start[iv] + pos // fold_w,
+                pos % fold_w] = np.arange(int(counts.sum()))
+            pad = tbl < 0
+            head_tables.append(np.where(pad, 0, tbl))
+            head_padcnt.append(_padcnt(tbl, pad))
+            slots += tbl.size
+            counts, start = sub, s_start
+
+    # ---- width classes over the rest (contiguous ranges) ------------
+    class_tables: List[np.ndarray] = []
+    class_padcnt: List[np.ndarray] = []
+    lo = num_head
+    bounds = list(widths[::-1])
+    lowers = [0] + list(widths[:-1])
+    for w, w_lo in zip(bounds, lowers[::-1]):
+        # vertices with w_lo < deg <= w (deg_s descending ⇒ contiguous)
+        hi = lo + int(((deg_s[lo:] <= w) & (deg_s[lo:] > w_lo)).sum())
+        if w == widths[0]:      # smallest class also takes deg < w_lo+1
+            hi = lo + int((deg_s[lo:] <= w).sum())
+        n = hi - lo
+        if n == 0:
+            lo = hi
+            continue
+        tbl = np.full((n, w), -1, dtype=np.int32)
+        d = deg_s[lo:hi]
+        iv = np.repeat(np.arange(n), d)
+        pos = np.arange(int(d.sum())) - np.repeat(np.cumsum(d) - d, d)
+        starts = offsets[perm[lo:hi]]
+        flat_nbr = neighbors[np.repeat(starts, d) + pos]
+        tbl[iv, pos] = rank[flat_nbr]
+        pad = tbl < 0
+        class_tables.append(np.where(pad, 0, tbl))
+        class_padcnt.append(_padcnt(tbl, pad))
+        slots += tbl.size
+        lo = hi
+    assert lo == num_v, (lo, num_v)
+
+    if hub_counts is not None:
+        hub_counts = hub_counts[perm]           # rows in permuted space
+        hub_rows = rank[hub_vertices].astype(np.int32)
+    return BinnedEll(perm=perm, rank=rank, class_tables=class_tables,
+                     class_padcnt=class_padcnt, head_tables=head_tables,
+                     head_padcnt=head_padcnt, num_head=num_head,
+                     num_vertices=num_v, num_slots=int(slots),
+                     num_hub_arcs=num_hub_arcs,
+                     hub_rows=hub_rows, hub_counts=hub_counts,
+                     hub_precision=hub_precision)
+
+
+# ---- the device side ------------------------------------------------------
 
 def gather_sum_plain(buf: torch.Tensor, tbl: torch.Tensor,
                      padcnt: Optional[torch.Tensor],
@@ -103,15 +342,190 @@ def _check(buf, tbl, padcnt, out):
             raise ValueError(f"{name} is on {t.device}, buf on {buf.device}")
 
 
+class _CTable(ctypes.Structure):
+    """csrc/ell_gather_sum.cu: EllTable."""
+    _fields_ = [("tbl", ctypes.c_void_p), ("padcnt", ctypes.c_void_p),
+                ("out_row", ctypes.c_longlong), ("rows", ctypes.c_longlong),
+                ("width", ctypes.c_int), ("first_unit", ctypes.c_int)]
+
+
+class _CLevel(ctypes.Structure):
+    """csrc/ell_gather_sum.cu: EllLevel."""
+    _fields_ = [("n", ctypes.c_int), ("units", ctypes.c_int),
+                ("deal", ctypes.c_int), ("t", _CTable * MAX_TABLES)]
+
+
+@dataclass(frozen=True)
+class PlanTable:
+    """One gather table of a level and where its rows go: ``out_row`` is
+    its first row in the apply's work buffer."""
+    tbl: torch.Tensor                 # int32 [rows, width]
+    padcnt: Optional[torch.Tensor]    # f32 [rows] or None
+    out_row: int
+
+    @property
+    def rows(self) -> int:
+        return self.tbl.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.tbl.shape[1]
+
+
+@dataclass(frozen=True)
+class PlanLevel:
+    """Tables that read the same rows: ``h_perm`` when ``src_row`` is
+    None, else ``src_rows`` rows of the work buffer from ``src_row``."""
+    tables: Tuple[PlanTable, ...]
+    src_row: Optional[int]
+    src_rows: int
+
+    def descriptors(self, lanes: int) -> List[Tuple[_CLevel, int]]:
+        """The level's launches for ``lanes`` lanes per table row: per
+        launch at most MAX_TABLES table descriptors, each with its first
+        work unit, and the launch's block count.  A unit is a warp's 32
+        // lanes consecutive rows of one table; a block's THREADS // 32
+        warps take consecutive units or, below DEAL_BELOW_LANES, units
+        dealt round-robin over the blocks."""
+        rows_per_unit = 32 // lanes
+        out = []
+        for lo in range(0, len(self.tables), MAX_TABLES):
+            level, units = _CLevel(), 0
+            chunk = [t for t in self.tables[lo:lo + MAX_TABLES] if t.rows]
+            for i, t in enumerate(chunk):
+                level.t[i] = _CTable(
+                    t.tbl.data_ptr(),
+                    None if t.padcnt is None else t.padcnt.data_ptr(),
+                    t.out_row, t.rows, t.width, units)
+                units += -(-t.rows // rows_per_unit)
+            level.n, level.units = len(chunk), units
+            level.deal = int(lanes < DEAL_BELOW_LANES)
+            if chunk:
+                out.append((level, -(-units // (THREADS // 32))))
+        return out
+
+
+@dataclass
+class LaunchPlan:
+    """The launches of one ``apply_perm``, laid out once per layout.
+
+    The apply's work buffer has ``work_rows`` rows: the first
+    ``num_vertices`` are the output, the rest hold the head chain's
+    intermediate levels.  Level 0 is every width class (rows in order
+    after the head's) and the head's first table; level i > 0 is the
+    head's i-th table, reading level i-1's rows.  The last head table
+    writes the output's first ``num_head`` rows."""
+    levels: List[PlanLevel]
+    num_vertices: int
+    work_rows: int
+    _descriptors: Dict[int, list] = field(default_factory=dict, repr=False)
+
+    @classmethod
+    def build(cls, head, classes, num_head: int,
+              num_vertices: int) -> "LaunchPlan":
+        first, lo = [], num_head
+        for tbl, pc in classes:
+            first.append(PlanTable(tbl, pc, lo))
+            lo += tbl.shape[0]
+        levels, work_rows = [], num_vertices
+        src_row, src_rows = None, num_vertices
+        for i, (tbl, pc) in enumerate(head):
+            last = i == len(head) - 1
+            table = PlanTable(tbl, pc, 0 if last else work_rows)
+            tables = tuple(first) + (table,) if i == 0 else (table,)
+            levels.append(PlanLevel(tables, src_row, src_rows))
+            src_row, src_rows = table.out_row, table.rows
+            if not last:
+                work_rows += table.rows
+        if not head and first:
+            levels.append(PlanLevel(tuple(first), None, num_vertices))
+        return cls(levels=levels, num_vertices=num_vertices,
+                   work_rows=work_rows)
+
+    @property
+    def launches_per_apply(self) -> int:
+        """Kernel launches of one ``apply_perm`` on a CUDA tensor."""
+        return sum(-(-sum(1 for t in lv.tables if t.rows) // MAX_TABLES)
+                   for lv in self.levels)
+
+    def descriptors(self, lanes: int) -> list:
+        """Per level, ``PlanLevel.descriptors(lanes)``, built once."""
+        if lanes not in self._descriptors:
+            self._descriptors[lanes] = [lv.descriptors(lanes)
+                                        for lv in self.levels]
+        return self._descriptors[lanes]
+
+    def walk(self, h_perm: torch.Tensor, gather) -> torch.Tensor:
+        """The plan table by table through ``gather(buf, tbl, padcnt,
+        out=)``: what the kernel's launches compute, on any device."""
+        work = torch.empty((self.work_rows, h_perm.shape[1]),
+                           dtype=h_perm.dtype, device=h_perm.device)
+        for level in self.levels:
+            src = h_perm if level.src_row is None else work[
+                level.src_row:level.src_row + level.src_rows]
+            for t in level.tables:
+                gather(src, t.tbl, t.padcnt,
+                       out=work[t.out_row:t.out_row + t.rows])
+        return work[:self.num_vertices]
+
+    def launch(self, h_perm: torch.Tensor) -> torch.Tensor:
+        """One kernel launch per level (per MAX_TABLES tables of it) on
+        ``h_perm``'s CUDA device.  Nothing here but the allocation of the
+        work buffer and the launches: a step calls it twice."""
+        d = h_perm.shape[1]
+        work = torch.empty((self.work_rows, d), dtype=h_perm.dtype,
+                           device=h_perm.device)
+        src0, base = h_perm.data_ptr(), work.data_ptr()
+        vec, lanes = pack_shape(d, 4, src0, base)
+        device = h_perm.device.index
+        stream = torch.cuda.current_stream(h_perm.device).cuda_stream
+        for level, launches in zip(self.levels, self.descriptors(lanes)):
+            src = src0 if level.src_row is None else (
+                base + level.src_row * d * 4)
+            for desc, blocks in launches:
+                _launch(desc, blocks, device, src, base, d, vec, lanes,
+                        stream)
+        return work[:self.num_vertices]
+
+
+_LEVEL_FN = None
+
+
+def _level_fn():
+    """The built library's level entry point, checked once against this
+    module's constants."""
+    global _LEVEL_FN
+    from gnnpe_tpu_torch.kernels._build import load
+    lib = load("ell_gather_sum")
+    if (lib.gnnpe_ell_max_tables(), lib.gnnpe_ell_threads()) != (MAX_TABLES,
+                                                                 THREADS):
+        raise RuntimeError("ell_gather_sum.cu's kMaxTables/kThreads differ "
+                           "from ops/ell.py's MAX_TABLES/THREADS")
+    _LEVEL_FN = lib.gnnpe_ell_gather_sum_level_f32
+    return _LEVEL_FN
+
+
+def _launch(desc: _CLevel, blocks: int, device: int, buf: int, out: int,
+            d: int, vec: int, lanes: int, stream: int) -> None:
+    """One launch over the tables of ``desc``; ``buf`` and ``out`` are
+    device addresses, ``out`` the one its ``out_row`` entries count from."""
+    global LAUNCHES
+    err = (_LEVEL_FN or _level_fn())(device, ctypes.addressof(desc), buf, out,
+                                     d, vec, lanes, blocks, stream)
+    if err != 0:
+        raise RuntimeError(f"ell_gather_sum launch failed: CUDA error {err}")
+    LAUNCHES += 1
+
+
 def gather_sum(buf: torch.Tensor, tbl: torch.Tensor,
                padcnt: Optional[torch.Tensor],
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out[i] = Σ_k buf[tbl[i, k]] − padcnt[i]·buf[0]`` for a row-major
-    f32 ``buf`` [R, D], an int32 ``tbl`` [N, W] with entries in [0, R)
-    (pads point at row 0; ``BinnedEllDevice.from_host`` checks the
-    bounds once) and an f32 ``padcnt`` [N] or None.  ``out``, when
-    given, is a contiguous [N, D] row range of a larger output."""
-    global LAUNCHES
+    """One table: ``out[i] = Σ_k buf[tbl[i, k]] − padcnt[i]·buf[0]`` for a
+    row-major f32 ``buf`` [R, D], an int32 ``tbl`` [N, W] with entries in
+    [0, R) (pads point at row 0; the caller answers for the bounds) and
+    an f32 ``padcnt`` [N] or None.  ``out``, when given, is a contiguous
+    [N, D] row range of a larger output.  (``BinnedEllDevice`` does not
+    come through here: it launches whole levels.)"""
     _check(buf, tbl, padcnt, out)
     if buf.device.type == "cpu":
         return gather_sum_plain(buf, tbl, padcnt, out)
@@ -121,17 +535,13 @@ def gather_sum(buf: torch.Tensor, tbl: torch.Tensor,
         out = torch.empty((tbl.shape[0], buf.shape[1]), dtype=buf.dtype,
                           device=buf.device)
     if out.numel():
-        from gnnpe_tpu_torch.kernels._build import load
-        fn = load("ell_gather_sum").gnnpe_ell_gather_sum_f32
-        err = fn(buf.device.index, tbl.data_ptr(),
-                 None if padcnt is None else padcnt.data_ptr(),
-                 buf.data_ptr(), out.data_ptr(), tbl.shape[0], tbl.shape[1],
-                 buf.shape[1],
-                 torch.cuda.current_stream(buf.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"ell_gather_sum launch failed: CUDA error "
-                               f"{err}")
-        LAUNCHES += 1
+        vec, lanes = pack_shape(buf.shape[1], 4, buf.data_ptr(),
+                                out.data_ptr())
+        level = PlanLevel((PlanTable(tbl, padcnt, 0),), None, buf.shape[0])
+        (desc, blocks), = level.descriptors(lanes)
+        _launch(desc, blocks, buf.device.index, buf.data_ptr(),
+                out.data_ptr(), buf.shape[1], vec, lanes,
+                torch.cuda.current_stream(buf.device).cuda_stream)
     return out
 
 
@@ -152,12 +562,11 @@ Table = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 @dataclass
 class BinnedEllDevice:
-    """A ``BinnedEll`` uploaded to one device.
+    """A ``BinnedEll`` uploaded to one device, with its launch plan.
 
     ``apply_perm(h_perm)`` aggregates in the permuted vertex space
-    (``h_perm[i] = x[perm[i]]``): the head chain through every fold
-    level, then each width class into its contiguous row range, plus the
-    hub product.  ``apply(x)`` adds the boundary permutes."""
+    (``h_perm[i] = x[perm[i]]``): the plan's levels, plus the hub
+    product.  ``apply(x)`` adds the boundary permutes."""
     perm: torch.Tensor               # int64 [V]
     rank: torch.Tensor               # int64 [V], inverse of perm
     head: List[Table]                # fold levels of the head chain
@@ -169,28 +578,48 @@ class BinnedEllDevice:
     hub_rows: Optional[torch.Tensor]     # int64 [H]
     hub_counts: Optional[torch.Tensor]   # f32 [V, H] multiplicities
     hub_precision: str
+    plan: LaunchPlan = None
+
+    def __post_init__(self):
+        if self.plan is None:
+            self.plan = LaunchPlan.build(self.head, self.classes,
+                                         self.num_head, self.num_vertices)
 
     @classmethod
     def from_host(cls, layout: BinnedEll, device) -> "BinnedEllDevice":
-        """Upload ``layout`` once; checks every table's indices against
-        the rows it gathers from."""
+        """Upload ``layout`` once and lay out its launches; checks every
+        table's shape and its indices against the rows it gathers from,
+        so ``apply_perm`` checks only ``h_perm``."""
         device = as_device(device)
 
         def table(tbl, pc, rows):
+            if tbl.ndim != 2:
+                raise ValueError(f"a gather table must be 2-D, got "
+                                 f"{tbl.shape}")
             if tbl.size and (tbl.min() < 0 or tbl.max() >= rows):
                 raise ValueError(f"table indices outside [0, {rows})")
+            if pc is not None and pc.shape != tbl.shape[:1]:
+                raise ValueError(f"padcnt {pc.shape} for a table of "
+                                 f"{tbl.shape[0]} rows")
             return (torch.from_numpy(np.ascontiguousarray(
                         tbl, dtype=np.int32)).to(device),
                     None if pc is None else torch.from_numpy(
-                        np.asarray(pc, dtype=np.float32)).to(device))
+                        np.ascontiguousarray(pc, dtype=np.float32)
+                        ).to(device))
 
         v = layout.num_vertices
         head, rows = [], v
         for tbl, pc in zip(layout.head_tables, layout.head_padcnt):
             head.append(table(tbl, pc, rows))
             rows = tbl.shape[0]
+        if head and rows != layout.num_head:
+            raise ValueError(f"the head chain ends in {rows} rows for "
+                             f"{layout.num_head} head vertices")
         classes = [table(t, pc, v) for t, pc in zip(layout.class_tables,
                                                      layout.class_padcnt)]
+        if layout.num_head + sum(t.shape[0] for t, _ in classes) != v:
+            raise ValueError("the tables' rows do not add up to the "
+                             f"layout's {v} vertices")
         hub_rows = hub_counts = None
         if layout.hub_rows is not None and len(layout.hub_rows):
             hub_rows = torch.from_numpy(
@@ -208,6 +637,10 @@ class BinnedEllDevice:
                    hub_counts=hub_counts,
                    hub_precision=layout.hub_precision)
 
+    @property
+    def launches_per_apply(self) -> int:
+        return self.plan.launches_per_apply
+
     def _hub_part(self, h_perm: torch.Tensor) -> torch.Tensor:
         """``B @ h_perm[hubs]`` with JAX's precision per mode: "f32" is
         one f32 product; "bf16" and "hi_lo" take the bf16-rounded hi
@@ -224,26 +657,30 @@ class BinnedEllDevice:
                 out = out + self.hub_counts @ lo.float()
         return out
 
-    def apply_perm(self, h_perm: torch.Tensor,
-                   gather=gather_sum) -> torch.Tensor:
-        """Aggregated [V, D] in the permuted space.  ``gather`` is the
-        per-table gather-sum; ``gather_sum_plain`` gives the plain
-        version on any device (the kernel check compares the two)."""
-        if h_perm.shape[0] != self.num_vertices:
-            raise ValueError(f"h_perm has {h_perm.shape[0]} rows for "
-                             f"{self.num_vertices} vertices")
+    def apply_perm(self, h_perm: torch.Tensor, gather=None) -> torch.Tensor:
+        """Aggregated [V, D] in the permuted space.  A CUDA ``h_perm``
+        launches the kernel once per level, a CPU one walks the plan
+        over ``gather_sum_plain``.  ``gather``, when given, is a
+        per-table gather-sum the plan is walked over instead, on any
+        device (the kernel check passes ``gather_sum_plain``)."""
+        if (h_perm.dim() != 2 or h_perm.shape[0] != self.num_vertices
+                or h_perm.dtype != torch.float32):
+            raise ValueError(f"h_perm must be float32 [{self.num_vertices}, "
+                             f"D], got {h_perm.dtype} "
+                             f"{tuple(h_perm.shape)}")
+        if h_perm.device != self.perm.device:
+            raise ValueError(f"h_perm is on {h_perm.device}, the layout on "
+                             f"{self.perm.device}")
         h_perm = h_perm.contiguous()
-        out = torch.empty(h_perm.shape, dtype=h_perm.dtype,
-                          device=h_perm.device)
-        if self.num_head:
-            cur = h_perm
-            for tbl, pc in self.head[:-1]:
-                cur = gather(cur, tbl, pc)
-            gather(cur, *self.head[-1], out=out[:self.num_head])
-        lo = self.num_head
-        for tbl, pc in self.classes:
-            gather(h_perm, tbl, pc, out=out[lo:lo + tbl.shape[0]])
-            lo += tbl.shape[0]
+        if gather is not None:
+            out = self.plan.walk(h_perm, gather)
+        elif h_perm.device.type == "cpu":
+            out = self.plan.walk(h_perm, gather_sum_plain)
+        elif h_perm.device.type == "cuda":
+            out = self.plan.launch(h_perm)
+        else:
+            raise ValueError(f"no gather_sum kernel for device "
+                             f"{h_perm.device}")
         if self.hub_rows is not None:
             out = out + self._hub_part(h_perm)
         return out

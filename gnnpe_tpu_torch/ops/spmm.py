@@ -13,14 +13,57 @@ show that its main path went through the kernel.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from gnnpe_tpu.ops.spmm import neighbor_sum_np  # the host f64 reference
+from gnnpe_tpu_torch.kernels._build import pack_shape
 
 LAUNCHES = 0
 
+# What the launch is shaped by, measured on an H100 at the dblp rung
+# (kernels/compare_gather.py --sweep).  Read at call time.
+# A row gets at least this many lanes where its width allows: two 8-byte
+# lanes beat one 16-byte lane at the VDE's f64 D=2.
+MIN_LANES = 2
+# Rows of at most this many lanes are "narrow": their warps' units are
+# dealt round-robin over the blocks, and rows with more than LONG_ROWS
+# neighbours are queued for a whole warp (csrc/spmm_csr.cu, "the degree
+# tail"); wider rows measured slower with either.  A negative LONG_ROWS
+# turns the queue off; the choice changes the schedule, never a sum.
+NARROW_LANES = 2
+LONG_ROWS = 64
+
 _KERNELS = {torch.float64: "gnnpe_spmm_csr_f64",
             torch.float32: "gnnpe_spmm_csr_f32"}
+
+
+# The host f64 reference (the port's copy of gnnpe_tpu/ops/spmm.py's).
+def neighbor_sum_np(offsets: np.ndarray, neighbors: np.ndarray,
+                    x: np.ndarray) -> np.ndarray:
+    """nx[v] = Σ_{u∈N(v)} x[u] in float64 on host.
+
+    Matches the reference accumulation order (custom.h:523-534): ascending
+    neighbor order per row (rows are sorted), left-to-right summation —
+    np.add.reduceat reduces in index order, so sums are bit-identical.
+    """
+    x = np.asarray(x, dtype=np.float64)
+    gathered = x[neighbors]
+    deg = np.diff(offsets).astype(np.int64)
+    out = np.zeros((len(deg), x.shape[1]), dtype=np.float64)
+    if len(neighbors) == 0:
+        return out
+    # Strictly left-to-right accumulation per row, vectorized across
+    # rows: iterate the neighbor *position*, adding the j-th neighbor of
+    # every row that has one.  (np.add.reduceat / np.sum use pairwise
+    # summation, which drifts from the reference by ulps at degree ≥ ~10.)
+    starts = offsets[:-1].astype(np.int64)
+    max_deg = int(deg.max())
+    active = np.nonzero(deg > 0)[0]
+    for j in range(max_deg):
+        if j > 0:
+            active = active[deg[active] > j]
+        out[active] += gathered[starts[active] + j]
+    return out
 
 
 def neighbor_sum_plain(offsets: torch.Tensor, neighbors: torch.Tensor,
@@ -77,10 +120,16 @@ def neighbor_sum(offsets: torch.Tensor, neighbors: torch.Tensor,
     if x.numel():
         from gnnpe_tpu_torch.kernels._build import load
         fn = getattr(load("spmm_csr"), _KERNELS[x.dtype])
+        vec, lanes = pack_shape(
+            x.shape[1], x.element_size(), x.data_ptr(), nx.data_ptr(),
+            *([vde.data_ptr()] if with_vde else []), min_lanes=MIN_LANES)
+        narrow = lanes <= NARROW_LANES
         err = fn(x.device.index, offsets.data_ptr(),
                  neighbors.data_ptr(), x.data_ptr(), nx.data_ptr(),
                  vde.data_ptr() if with_vde else None, x.shape[0],
-                 x.shape[1], torch.cuda.current_stream(x.device).cuda_stream)
+                 x.shape[1], vec, lanes,
+                 LONG_ROWS if narrow else -1, int(narrow),
+                 torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"spmm_csr launch failed: CUDA error {err}")
         LAUNCHES += 1

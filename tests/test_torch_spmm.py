@@ -126,3 +126,53 @@ def test_kernel_matches_plain_on_cuda(cuda_device):
     assert np.array_equal(
         spmm.neighbor_sum(off, nbr, x.double()).cpu().numpy(),
         neighbor_sum_np(g.offsets, g.neighbors, x64))
+
+
+def _odd_graph():
+    """Rows of degree 0, 1, 3 and 199 (past every long-row threshold
+    tried), in natural order."""
+    rng = np.random.RandomState(0)
+    edges = ([[0, i] for i in range(1, 200)] + [[300, 301]] +
+             rng.randint(1, 300, (500, 2)).tolist())
+    edges = np.array([e for e in edges if e[0] != e[1]])
+    edges = np.unique(np.sort(edges, axis=1), axis=0)
+    g = CSRGraph.from_edges(310, edges, np.zeros(310, dtype=np.int64))
+    assert set(g.degrees[[0, 300, 305]]) == {199, 1, 0}
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 128, 130])
+def test_kernel_odd_shapes_on_cuda(cuda_device, monkeypatch, dtype, d):
+    """Every lane shape of the kernel (1, 2 or 4 columns per lane, 1 to
+    32 lanes per row, a row wider than one column tile) on rows of
+    degree 0, 1 and 199, with the long-row queue at its default, off and
+    at a threshold of 4; with and without the fused VDE; on an x whose
+    first byte is only element-aligned; and on an 8-vertex graph (one
+    small block).  Bit-equal to the plain version throughout."""
+    g = _odd_graph()
+    off, nbr = _csr(g, cuda_device)
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.rand(g.num_vertices, d).astype(dtype)
+                         ).to(cuda_device)
+    plain = spmm.neighbor_sum_plain(off, nbr, x)
+    if dtype == np.float64:
+        assert np.array_equal(plain.cpu().numpy(), neighbor_sum_np(
+            g.offsets, g.neighbors, x.cpu().numpy()))
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+    shifted = flat[1:].view(x.shape).copy_(x)
+    for long_rows in (spmm.LONG_ROWS, -1, 4):
+        monkeypatch.setattr(spmm, "LONG_ROWS", long_rows)
+        for xin in (x, shifted):
+            nx, vde = spmm.neighbor_sum(off, nbr, xin, with_vde=True)
+            only = spmm.neighbor_sum(off, nbr, xin)
+            torch.cuda.synchronize()
+            assert torch.equal(nx, plain) and torch.equal(only, plain)
+            assert torch.equal(vde, x + plain)
+    q = CSRGraph.from_edges(8, np.array([[i, i + 1] for i in range(7)]),
+                            np.zeros(8, dtype=np.int64))
+    qo, qn = _csr(q, cuda_device)
+    xq = x[:8].contiguous()
+    assert torch.equal(spmm.neighbor_sum(qo, qn, xq),
+                       spmm.neighbor_sum_plain(qo, qn, xq))
