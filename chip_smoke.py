@@ -8,8 +8,8 @@
    refinement engine).
 3. Kernel phase: the neighbour-sum SpMM (A1) against its plain PyTorch
    version on the card, on the dblp-rung graph — f64 at the VDE width
-   (D=2) and f32 at D=128 — required bit-equal (both add in the same
-   order); timed in turns plain, kernel, kernel, plain, beside one
+   (D=2), f32 at D=128 and f32 at D=8 on a 0/1 matrix (the pre-verify's
+   shape) — required bit-equal (both add in the same order); timed in turns plain, kernel, kernel, plain, beside one
    library call of the same function (``torch.sparse.mm`` of the CSR
    adjacency, which the port never calls), the kernel alone on the card
    (replayed from a CUDA graph) and with L2 flushed, its bound from the
@@ -19,7 +19,11 @@
    capped at 100,000) over the host-built array-mode index: 8 tree
    queries of 8 vertices through ``online`` (host union, then device
    union), then all 8 at once through ``online_many`` with the device
-   union.
+   union.  Then the pre-verify check: ``online(preverify=2,
+   union="device")`` on the same queries, whose pruned candidates must
+   equal a numpy arc-consistency oracle (``neighbor_sum_np`` on the 0/1
+   matrix); PE's answer counts are printed beside the unpruned ones
+   (they may move), PGE's (phase 6) must not move.
 5. PE table phase: the same queries over the table-mode index built on
    the card — ``offline(device=True)`` (device path enumeration and
    dedup) and ``build_index(table=True)`` (sort key, stable sort,
@@ -33,8 +37,25 @@
    by wall clock; and the two PE layouts' ``search`` times are compared
    on 64 more queries (seeds 100-163), in turns array, table, table,
    array, each union, with equal candidates required.
+   PE streamed phase: the same index served past device memory.  The
+   card would hold the table many times over, so the phase forces
+   ``build_index(table=True, resident=False)``: the bucketed build on
+   the host with a disk spill into a temporary directory, fed chunk by
+   chunk from phase 4's host paths, whose vid table, summaries and
+   signature ranges must equal phase 5's device build; a block pool of
+   about a quarter of the table.  The 8 queries under both unions must
+   equal the oracle; the 64 comparison queries must equal table mode's
+   candidates cold (misses), warm (the same queries again: hits), hot
+   (each query twice in a row, the second timed), after
+   ``prefill_cache``, after ``degrade_cache(0.5)`` and with the cache
+   off (per-chunk uploads), each timed in turns with table mode; evictions must have happened,
+   and the phase's resident tensors and peak device memory must stay
+   under the table's.  ``auto_resident`` must say resident with the
+   card's free memory and streamed with a budget under the table.
+   ``save``, ``load`` over the memmap sidecar, one query, ``close``, and
+   the spill directory must be empty.
 6. PGE phase: the same graph and queries with PGE -l 2 (host path
-   groups).
+   groups), and the pre-verify check with equal answer counts.
 7. PGE device phase: ``offline(device=True)`` — path groups folded on
    the card — whose groups must equal phase 6's bit for bit; the fold is
    timed alone with CUDA events.
@@ -67,8 +88,8 @@ shares no code with the torch VDE, the packed index or the kernels), and
 every answer count must equal native refinement on
 those candidates; the table and device phases share the oracle of the
 phase before them.  Each kernel's launch count over the main path of
-the phases that run it (A1: PE, PE table, PGE, PGE device and train;
-A2: train) must be > 0, and the index tensors must live on the card.
+the phases that run it (A1: PE, PE table, PE streamed, PGE, PGE device,
+both pre-verify runs and train; A2: train) must be > 0, and the index tensors must live on the card.
 At the end neither ``jax`` nor any module of ``gnnpe_tpu`` may have been
 imported.  Any failure exits non-zero.  The full record is printed as one
 ``record: {...}`` line; the second-to-last line is the kernels record,
@@ -82,6 +103,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -92,6 +114,10 @@ QUERY_SIZE = 8
 MODE_QUERIES = range(100, 164)   # the PE layouts' search comparison
 BLOCK_SIZE = 512
 KERNELS = ("spmm_csr", "ell_gather_sum")
+PREVERIFY_ROUNDS = 2
+# The streamed phase's block pool: about a quarter of the dblp index's
+# 118,711 blocks, so that misses, hits and evictions all happen.
+STREAM_POOL_BLOCKS = 30_000
 TRAIN_STEPS = 300
 TRAIN_QUERIES = 8
 SEGMENT_STEPS = 50        # the binned run's first chunk of batches
@@ -232,8 +258,9 @@ def build_phase(record) -> None:
 
 
 def kernel_phase(g, device, record) -> dict:
-    """spmm_csr against neighbor_sum_plain on the card; returns the f64
-    D=2 (main-path shape) row of the kernels record."""
+    """spmm_csr against neighbor_sum_plain on the card; returns its
+    rows of the kernels record (f64 D=2 and f32 D=8 are main-path
+    shapes)."""
     import torch
     from gnnpe_tpu_torch.graph.csr import to_device
     from gnnpe_tpu_torch.ops import spmm
@@ -244,6 +271,10 @@ def kernel_phase(g, device, record) -> dict:
         "f64_d2": table.to(device)[labels.long()],
         "f32_d128": torch.from_numpy(np.random.RandomState(0).rand(
             g.num_vertices, 128).astype(np.float32)).to(device),
+        # The pre-verify's shape: 8 candidate sets as a 0/1 matrix.
+        "f32_d8": torch.from_numpy((np.random.RandomState(2).rand(
+            g.num_vertices, QUERY_SIZE) < 0.1).astype(np.float32)
+        ).to(device),
     }
     rows = {}
     v, arcs = g.num_vertices, int(nbr.numel())
@@ -286,9 +317,11 @@ def _percentiles(vals):
 
 def _drive(eng, queries, device, wall, prefix, block_size, offline_kw,
            build_kw):
-    """The main path: offline, index, upload, online x N, online_many."""
+    """The main path: offline (unless the engine was handed its paths),
+    index, upload, online x N, online_many."""
     with wall.stage(f"{prefix}.offline"):
-        eng.offline(**offline_kw)
+        if getattr(eng, "paths", None) is None:
+            eng.offline(**offline_kw)
     with wall.stage(f"{prefix}.build_index"):
         eng.build_index(block_size=block_size, **build_kw)
     with wall.stage(f"{prefix}.attach_device"):
@@ -365,6 +398,75 @@ def _check_query(prefix, i, runs, want, count) -> None:
               f"{count}")
 
 
+def _arc_consistency_np(g, q, cands, rounds) -> list:
+    """Arc consistency in numpy, f64, over the 0/1 candidate matrix: a
+    candidate of query vertex i stays iff, for every query neighbour j
+    of i, one of j's candidates is adjacent to it in ``g``."""
+    from gnnpe_tpu_torch.ops.spmm import neighbor_sum_np
+    c = np.zeros((g.num_vertices, q.num_vertices))
+    for i, cand in enumerate(cands):
+        c[cand, i] = 1.0
+    for _ in range(rounds):
+        reach = neighbor_sum_np(g.offsets, g.neighbors, c) > 0
+        for i in range(q.num_vertices):
+            for j in q.vertex_neighbors(i):
+                c[:, i] *= reach[:, j]
+    return [np.nonzero(c[:, i])[0].astype(np.int64)
+            for i in range(q.num_vertices)]
+
+
+def _preverify_check(prefix, eng, g, queries, runs, record,
+                     counts_must_hold) -> int:
+    """``online(preverify=PREVERIFY_ROUNDS, union="device")`` on every
+    query, with the kernel's count set to 0 just before and read just
+    after: pruned candidates equal to the numpy oracle on the unpruned
+    run's candidates; answer counts equal to the unpruned ones where
+    the variant is exact.  Returns A1's launches."""
+    from gnnpe_tpu_torch.ops import spmm
+    base = runs["online_device_union"]
+    spmm.LAUNCHES = 0
+    pruned = [eng.online(q, union="device", preverify=PREVERIFY_ROUNDS)
+              for q in queries]
+    launches = spmm.LAUNCHES
+    # One launch a query is its VDE; the rest are pruning rounds.
+    rounds = launches - len(queries)
+    check(len(queries) <= rounds <= PREVERIFY_ROUNDS * len(queries),
+          f"{prefix} pre-verify: {rounds} spmm_csr launches for "
+          f"{len(queries)} queries of {PREVERIFY_ROUNDS} rounds")
+    for i, (q, r, b) in enumerate(zip(queries, pruned, base)):
+        want = _arc_consistency_np(g, q, b.candidates, PREVERIFY_ROUNDS)
+        check(len(r.candidates) == len(want) and all(
+            np.array_equal(x, y) for x, y in zip(r.candidates, want)),
+            f"{prefix} pre-verify query {i}: pruned candidates differ from "
+            "the numpy oracle")
+        check(not counts_must_hold or r.answer_count == b.answer_count,
+              f"{prefix} pre-verify query {i}: {r.answer_count} answers, "
+              f"unpruned {b.answer_count}")
+    rec = dict(
+        rounds=PREVERIFY_ROUNDS, spmm_launches=launches,
+        prune_launches=rounds,
+        candidates_before=[int(sum(map(len, b.candidates))) for b in base],
+        candidates_after=[int(sum(map(len, r.candidates))) for r in pruned],
+        answers_unpruned=[b.answer_count for b in base],
+        answers_pruned=[r.answer_count for r in pruned],
+        preverify_ms=_percentiles([r.timings_ms["preverify"]
+                                   for r in pruned]),
+        refine_ms=_percentiles([r.timings_ms["refine"] for r in pruned]),
+        refine_ms_unpruned=_percentiles([b.timings_ms["refine"]
+                                         for b in base]))
+    record[prefix]["preverify"] = rec
+    print(f"{prefix} pre-verify ({PREVERIFY_ROUNDS} rounds, {rounds} A1 "
+          f"launches at f32 D={QUERY_SIZE}): pruned candidates equal the "
+          f"numpy oracle; candidates {sum(rec['candidates_before'])} -> "
+          f"{sum(rec['candidates_after'])}; answers unpruned "
+          f"{rec['answers_unpruned']}, pruned {rec['answers_pruned']}"
+          + (" (equal)" if counts_must_hold else " (PE's may move)")
+          + f"; preverify p50 {rec['preverify_ms']['p50']:.2f} ms, refine "
+          f"p50 {rec['refine_ms']['p50']:.2f} ms (unpruned "
+          f"{rec['refine_ms_unpruned']['p50']:.2f} ms)")
+    return launches
+
+
 def _checked_host_vde(g, cfg, eng, device):
     """The port's numpy VDE of ``g``, after checking that the engine's
     VDE (computed on ``device``) equals it bit for bit."""
@@ -406,19 +508,21 @@ def pe_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> tuple:
         _check_query("pe", i, runs, wants[-1], counts[-1])
     print(f"pe: {len(queries)} queries x {sorted(runs)} equal the "
           "flat f64 oracle and native refinement")
+    launches += _preverify_check("pe", eng, g, queries, runs, record,
+                                 counts_must_hold=False)
     return launches, dict(paths=eng.paths, vertices=host, wants=wants,
                           counts=counts, engine=eng)
 
 
 def pe_table_phase(g, queries, device, record, oracle,
-                   block_size=BLOCK_SIZE) -> int:
+                   block_size=BLOCK_SIZE) -> tuple:
     """The table-mode PE index built on the card through the engine (the
     main path), held to the PE phase's oracle; then, outside the counted
     run, save/load at full size, each device program of the build timed
     alone, the host copy of the vid table both ways, and the search of
     both PE layouts on more queries (the PE phase's array-mode engine
     stays resident for it; peaks are counted above it).  Returns the
-    main path's A1 launches."""
+    main path's A1 launches and the engine."""
     import os
     from pathlib import Path
 
@@ -521,6 +625,218 @@ def pe_table_phase(g, queries, device, record, oracle,
     rec["modes"] = _compare_modes(g, oracle["engine"], eng)
     print("pe_table: search ms, array vs table mode: "
           + json.dumps(rec["modes"]))
+    return launches, eng
+
+
+def _stream_pass(name, g_tables, table, idx, union="device",
+                 repeat=False) -> dict:
+    """One pass of the comparison queries: per query table mode then the
+    streamed index (wall ms each, ``search`` ends in a copy to the
+    host), candidates required equal; the streamed side's hits, misses
+    and uploaded bytes summed from ``last_stats``.  With ``repeat`` the
+    streamed index answers each query twice and the second answer is
+    the one timed and counted: its blocks were used a moment ago."""
+    ms = {"table": [], "streamed": []}
+    hits = misses = uploaded = 0
+    for i, q in enumerate(g_tables):
+        t0 = time.perf_counter()
+        want = table.search(q, union=union)
+        ms["table"].append((time.perf_counter() - t0) * 1e3)
+        if repeat:
+            idx.search(q, union=union)
+        t0 = time.perf_counter()
+        got = idx.search(q, union=union)
+        ms["streamed"].append((time.perf_counter() - t0) * 1e3)
+        check(len(got) == len(want) and all(
+            np.array_equal(a, b) for a, b in zip(got, want)),
+            f"pe_streamed {name}: query {i} {union}: candidates differ from "
+            "table mode's")
+        st = idx.last_stats
+        hits += st.get("cache_hits", 0)
+        misses += st.get("cache_misses", 0)
+        uploaded += st["uploaded_bytes"]
+    n = len(g_tables)
+    cache = idx._cache
+    return dict(
+        union=union, streamed_ms=_percentiles(ms["streamed"]),
+        table_ms=_percentiles(ms["table"]),
+        streamed_mean_ms=float(np.mean(ms["streamed"])),
+        table_mean_ms=float(np.mean(ms["table"])),
+        hits=hits, misses=misses,
+        hit_rate=hits / max(hits + misses, 1),
+        uploaded_bytes_per_query=uploaded / n,
+        evictions=cache.evictions if cache else 0,
+        pool_blocks=cache.capacity if cache else 0,
+        pool_bytes=int(cache.buf.numel() * 4) if cache else 0)
+
+
+def pe_streamed_phase(g, queries, device, record, oracle, table_eng,
+                      block_size=BLOCK_SIZE) -> int:
+    """The PE index served past device memory (``resident=False``
+    forced): the bucketed host build with a disk spill through the
+    engine (the main path), held to the table phase's device build and
+    the PE oracle; then the comparison queries against table mode cold,
+    warm, prefilled, degraded and uncached; what stays resident;
+    ``auto_resident``; save, load, close.  Returns the main path's A1
+    launches."""
+    import os
+
+    import torch
+    from gnnpe_tpu_torch.config import PEConfig
+    from gnnpe_tpu_torch.engine import PEEngine
+    from gnnpe_tpu_torch.index import device_packed as dp
+    from gnnpe_tpu_torch.io.datasets import sample_query
+    cfg = PEConfig.from_cli(l=2, e=2, n=MAX_ANSWERS)
+    table = table_eng.searcher
+    table_bytes = table._host_vids.nbytes
+    l = table._host_vids.shape[1]
+    block_bytes = block_size * l * 4
+    eng = PEEngine(cfg, g, device)
+    eng.paths = oracle["paths"]     # the array phase's host rows
+    base = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="gnnpe_smoke_") as tmp:
+        spill_dir = os.path.join(tmp, "spill")
+        runs, launches = _engine_phase(
+            "pe_streamed", eng, queries, device, record, block_size,
+            build_kw=dict(table=True, resident=False, spill_dir=spill_dir,
+                          cache_bytes=STREAM_POOL_BLOCKS * block_bytes))
+        rec = record["pe_streamed"]
+        rec["main_path_peak_device_bytes"] = (
+            torch.cuda.max_memory_allocated() - base)
+        idx = eng.searcher
+        check(type(idx) is dp.StreamedPESearch and eng.index is None,
+              "pe_streamed: build_index(resident=False) did not build a "
+              "streamed index")
+        check(isinstance(idx._host_vids, np.memmap)
+              and os.listdir(spill_dir) == [os.path.basename(
+                  idx._owned_table_path)],
+              "pe_streamed: the sorted table is not the one file left in "
+              "the spill directory")
+        rec["build_timings"] = eng.build_timings
+        check(np.array_equal(idx._host_vids, table._host_vids),
+              "pe_streamed: the bucketed build's vid table differs from the "
+              "device build's")
+        check(all(torch.equal(getattr(idx, k), getattr(table, k))
+                  for k in ("b_ub", "b_llo", "b_lhi", "b_deg")),
+              "pe_streamed: summaries differ from the device build's")
+        check(np.array_equal(idx._blk_sig_first, table._blk_sig_first)
+              and np.array_equal(idx._blk_sig_last, table._blk_sig_last),
+              "pe_streamed: signature ranges differ from the device build's")
+        for i in range(len(queries)):
+            _check_query("pe_streamed", i, runs, oracle["wants"][i],
+                         oracle["counts"][i])
+        print(f"pe_streamed: bucketed build ({eng.build_timings['n_buckets']} "
+              f"buckets, {eng.build_timings['spilled_bytes']} B spilled) "
+              "equals the device build's vid table, summaries and signature "
+              f"ranges; {len(queries)} queries x {sorted(runs)} equal the PE "
+              "oracle; build: " + json.dumps(eng.build_timings) + " stages ms: "
+              + json.dumps(idx.build_phase_ms))
+
+        # The comparison queries, each pass in turns with table mode.
+        tables = [eng._stack([eng._query_table(
+            sample_query(g, QUERY_SIZE, seed=s))]) for s in MODE_QUERIES]
+        idx.degrade_cache(1.0)               # an empty pool, same budget
+        passes = {"cold": _stream_pass("cold", tables, table, idx)}
+        check(passes["cold"]["misses"] > 0, "pe_streamed: a cold pool hit")
+        passes["warm"] = _stream_pass("warm", tables, table, idx)
+        check(passes["warm"]["hits"] > 0, "pe_streamed: no hit when warm")
+        check(passes["warm"]["evictions"] > 0,
+              "pe_streamed: a pool of a quarter of the index never evicted")
+        passes["warm_host_union"] = _stream_pass("warm host", tables, table,
+                                                 idx, union="host")
+        passes["hot"] = _stream_pass("hot", tables, table, idx, repeat=True)
+        # What is resident: nothing of the table's size.
+        tensors = idx.resident_tensors()
+        sizes = {k: int(t.numel() * t.element_size())
+                 for k, t in tensors.items()}
+        rec["resident_bytes"] = sizes
+        check("cache_pool" in sizes and sum(sizes.values()) < table_bytes
+              and all(t.is_cuda for t in tensors.values()),
+              f"pe_streamed: resident tensors {sizes} against a table of "
+              f"{table_bytes} B")
+        t0 = time.perf_counter()
+        loaded = idx.prefill_cache(order="popular")
+        torch.cuda.synchronize()
+        rec["prefill"] = dict(blocks=loaded, s=time.perf_counter() - t0)
+        check(loaded > 0, "pe_streamed: prefill_cache loaded nothing")
+        passes["prefilled"] = _stream_pass("prefilled", tables, table, idx)
+        budget = idx.degrade_cache(0.5)
+        check(idx._cache is None and budget == STREAM_POOL_BLOCKS
+              * block_bytes / 2, "pe_streamed: degrade_cache(0.5)")
+        passes["degraded"] = _stream_pass("degraded", tables, table, idx)
+        check(passes["degraded"]["pool_blocks"] == STREAM_POOL_BLOCKS // 2,
+              "pe_streamed: the degraded pool's capacity")
+        idx.degrade_cache(1.0)
+        idx.use_cache = False
+        passes["uncached"] = _stream_pass("uncached", tables, table, idx)
+        check(idx._cache is None and passes["uncached"]["misses"] == 0
+              and passes["uncached"]["uploaded_bytes_per_query"] > 0,
+              "pe_streamed: the uncached pass used a pool")
+        idx.use_cache = True
+        rec["passes"] = passes
+        for name, ps in passes.items():
+            print(f"pe_streamed {name}: " + json.dumps(ps))
+        rec["peak_phase_device_bytes"] = (torch.cuda.max_memory_allocated()
+                                          - base)
+        table_peak = record["pe_table"]["main_path_peak_device_bytes"]
+        check(rec["peak_phase_device_bytes"] < table_peak,
+              f"pe_streamed: peak {rec['peak_phase_device_bytes']} B on the "
+              f"card, table mode's main path {table_peak} B")
+        print(f"pe_streamed: resident {sum(sizes.values())} B (pool "
+              f"{sizes['cache_pool']} B) against a vid table of {table_bytes}"
+              f" B; peak over the phase {rec['peak_phase_device_bytes']} B "
+              f"(table mode's main path {table_peak} B)")
+
+        # auto_resident with the card's own free memory, and a budget
+        # just under the table.
+        p = int(eng.paths.shape[0])
+        free = torch.cuda.mem_get_info(device)[0]
+        rec["auto_resident"] = dict(
+            free_bytes=int(free),
+            card=dp.auto_resident(p, l, block_size, device),
+            under_table=dp.auto_resident(p, l, block_size, device,
+                                         budget_bytes=table_bytes - 1))
+        check(rec["auto_resident"]["card"]
+              and not rec["auto_resident"]["under_table"],
+              f"pe_streamed: auto_resident {rec['auto_resident']}")
+
+        # save, load over the memmap sidecar, one query, close.
+        fp = os.path.join(tmp, "dblp_pe_streamed.npz")
+        t0 = time.perf_counter()
+        idx.save(fp)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded_idx = dp.load(fp, eng.vertices, device,
+                             cache_bytes=STREAM_POOL_BLOCKS * block_bytes)
+        load_s = time.perf_counter() - t0
+        check(type(loaded_idx) is dp.StreamedPESearch
+              and isinstance(loaded_idx._host_vids, np.memmap)
+              and os.path.exists(fp + ".vids.bin"),
+              "pe_streamed: the saved index did not load over its sidecar")
+        eng.searcher = loaded_idx
+        for union in ("host", "device"):
+            r = eng.online(queries[0], union=union)
+            check(r.answer_count == oracle["counts"][0] and all(
+                np.array_equal(a, b)
+                for a, b in zip(r.candidates, oracle["wants"][0])),
+                f"pe_streamed: loaded index, query 0 {union}: differs")
+        rec["save_load"] = dict(
+            save_s=save_s, load_s=load_s,
+            file_bytes=os.path.getsize(fp) + os.path.getsize(fp + ".vids.bin"))
+        loaded_idx.close()
+        idx.close()
+        check(os.listdir(spill_dir) == [] and idx.resident_tensors() == {},
+              "pe_streamed: close() left the spill file or device tensors")
+        try:
+            idx.search(tables[0])
+            check(False, "pe_streamed: a closed index answered")
+        except RuntimeError:
+            pass
+        print(f"pe_streamed: auto_resident says resident with {free} B free "
+              f"and streamed with a budget under the table; save "
+              f"{save_s:.2f} s, load {load_s:.2f} s over the memmap sidecar, "
+              "query 0 equal under both unions; close() removed the spill "
+              "file")
     return launches
 
 
@@ -601,6 +917,8 @@ def pge_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> tuple:
         _check_query("pge", i, runs, want, counts[-1])
     print(f"pge: {len(queries)} queries x {sorted(runs)} equal the "
           "flat f64 oracle and native refinement")
+    launches += _preverify_check("pge", eng, g, queries, runs, record,
+                                 counts_must_hold=True)
     return launches, dict(group=eng.group, label_group=eng.label_group,
                           wants=wants, counts=counts)
 
@@ -831,14 +1149,17 @@ def train_phase(g, device, record, launches_per_apply) -> tuple:
 
 
 def _kernel_row(name, replaces, launches, rows, main_shape) -> dict:
-    """One entry of the kernels record; the times and the bound at the
-    main path's shape."""
+    """One entry of the kernels record: the times and the bound at the
+    main path's shape, and under ``shapes`` those of every shape."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
     return {"name": name, "route": "cuda",
             "source": f"gnnpe_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-            **{k: rows[main_shape][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+            **{k: rows[main_shape][k] for k in keys[:-1]},
+            "shapes": {shape: {k: r[k] for k in keys}
+                       for shape, r in rows.items()}}
 
 
 def main() -> int:
@@ -885,9 +1206,13 @@ def main() -> int:
     peak("pe")
     fresh()
     base = torch.cuda.memory_allocated()      # the array-mode PE index
-    launches += pe_table_phase(g, queries, device, record, pe_oracle)
+    a1, table_eng = pe_table_phase(g, queries, device, record, pe_oracle)
+    launches += a1
     peak("pe_table", base)
-    del pe_oracle
+    fresh()
+    launches += pe_streamed_phase(g, queries, device, record, pe_oracle,
+                                  table_eng)
+    del pe_oracle, table_eng
     fresh()
     a1, pge_oracle = pge_phase(g, queries, device, record)
     launches += a1

@@ -5,9 +5,12 @@ gnnpe_tpu/engine.py with ``attach_mesh(packed=True)``).
                  the host, or with ``device=True`` on the engine's device
   build_index  → VDE + PDE (PE) and the host packed index; PE with
                  ``table=True`` builds the table-mode index on the device
-                 instead (index/device_packed.py ``TablePESearch``)
+                 instead (index/device_packed.py ``TablePESearch``), or,
+                 where ``resident`` says so, the streamed index on the
+                 host (``StreamedPESearch``)
   attach_device → the host index uploaded (index/device_packed.py)
-  online       → VDE + plan → device search → host refinement → count
+  online       → VDE + plan → device search → optional pre-verify on
+                 the device → host refinement → count
 
 VDE runs on the engine's device for the data graph and for every
 query.  Partitions only shard work and the candidate union does not
@@ -31,19 +34,26 @@ from gnnpe_tpu_torch.embed.pde import (PathEmbeddings, gen_pde,
                                        gen_query_pde_table, path_groups,
                                        path_groups_device)
 from gnnpe_tpu_torch.embed.vde import gen_vde
-from gnnpe_tpu_torch.graph.csr import CSRGraph
+from gnnpe_tpu_torch.graph.csr import CSRGraph, to_device
 from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
+from gnnpe_tpu_torch.index.bucket_build import build_streamed_from_chunks
 from gnnpe_tpu_torch.index.device_packed import (DevicePackedPESearch,
                                                  DevicePackedPGESearch,
                                                  PEQuery, PGEQuery,
-                                                 TablePESearch)
+                                                 TablePESearch,
+                                                 builds_resident)
 from gnnpe_tpu_torch.index.packed import PackedDominanceIndex, PGEPackedIndex
 from gnnpe_tpu_torch.match.plan import greedy_path_cover
+from gnnpe_tpu_torch.match.preverify import semijoin_prune
 from gnnpe_tpu_torch.match.refine import refinement
 from gnnpe_tpu_torch.paths.device_enumerate import enumerate_dedup_device
 from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
 from gnnpe_tpu_torch.utils.device import as_device
 from gnnpe_tpu_torch.utils.timers import StageTimer
+
+
+# Path rows one chunk of the streamed build keys and partitions at once.
+BUILD_CHUNK_PATHS = 1 << 22
 
 
 @dataclass
@@ -72,6 +82,15 @@ class _Engine:
         self.vertices = None
         self.index = None
         self.searcher = None
+        self._csr = None
+
+    def _prune(self, query_graph, cands, iters: int):
+        """``semijoin_prune`` over the data graph's CSR, which goes to
+        the device once per engine."""
+        if self._csr is None:
+            self._csr = to_device(self.graph, self.device)[:2]
+        return semijoin_prune(self.graph, query_graph, cands, self.device,
+                              iters=iters, csr=self._csr)
 
     def _vde(self, graph: CSRGraph):
         if self.embedder is not None:
@@ -95,7 +114,10 @@ class _Engine:
         return self
 
     def online(self, query_graph: CSRGraph, engine: str = "native",
-               union: str = "host") -> MatchResult:
+               union: str = "host", preverify: int = 0) -> MatchResult:
+        """preverify: rounds of semi-join pruning of the candidates on
+        the device before refinement (match/preverify.py), 0 = off.  PGE
+        counts do not move with it; PE counts can, by design."""
         if self.searcher is None:
             raise RuntimeError("call attach_device() before online()")
         t = StageTimer(self.device)
@@ -103,6 +125,9 @@ class _Engine:
             query = self._stack([self._query_table(query_graph)])
         with t.stage("search"):
             cands = self.searcher.search(query, union=union)
+        if preverify:
+            with t.stage("preverify"):
+                cands = self._prune(query_graph, cands, preverify)
         with t.stage("refine"):
             count = refinement(self.graph, query_graph, cands,
                                self.config.max_answers, engine=engine)
@@ -110,10 +135,12 @@ class _Engine:
                            timings_ms=t.times_ms)
 
     def online_many(self, query_graphs, engine: str = "native",
-                    union: str = "host") -> List[MatchResult]:
+                    union: str = "host",
+                    preverify: int = 0) -> List[MatchResult]:
         """Batched serving: all queries' rows stack into one search
         (query-vertex ids offset into one disjoint space), then the
-        candidates split per query for refinement."""
+        candidates split per query for ``preverify`` rounds of pruning
+        (as in ``online``) and refinement."""
         if self.searcher is None:
             raise RuntimeError("call attach_device() before online_many()")
         query = self._stack([self._query_table(qg) for qg in query_graphs])
@@ -122,17 +149,28 @@ class _Engine:
         for qg in query_graphs:
             per_query.append(cands_all[base:base + qg.num_vertices])
             base += qg.num_vertices
+        prune = ((lambda qg, c: self._prune(qg, c, preverify))
+                 if preverify else None)
         return _refine_batch(self.graph, query_graphs, per_query,
-                             self.config.max_answers, engine)
+                             self.config.max_answers, engine, prune)
 
 
 def _refine_batch(graph, query_graphs, per_query_cands, max_answers,
-                  engine) -> List[MatchResult]:
-    """Refinement per query, threaded when the native engine runs (its
-    ctypes call releases the GIL)."""
+                  engine, prune=None) -> List[MatchResult]:
+    """The tail of ``online_many``: ``prune(query, candidates)`` per
+    query where one is given (timed as ``preverify``; it returns host
+    arrays, so the device has finished), then refinement per query,
+    threaded when the native engine runs (its ctypes call releases the
+    GIL)."""
+    timers = [StageTimer() for _ in query_graphs]
+    if prune is not None:
+        pruned = []
+        for t, qg, c in zip(timers, query_graphs, per_query_cands):
+            with t.stage("preverify"):
+                pruned.append(prune(qg, c))
+        per_query_cands = pruned
 
-    def one(qg, cands):
-        t = StageTimer()
+    def one(qg, cands, t):
         with t.stage("refine"):
             count = refinement(graph, qg, cands, max_answers,
                                engine=engine)
@@ -142,8 +180,10 @@ def _refine_batch(graph, query_graphs, per_query_cands, max_answers,
     if engine != "python" and len(query_graphs) > 1:
         with ThreadPoolExecutor(max_workers=min(8, len(query_graphs))) \
                 as pool:
-            return list(pool.map(one, query_graphs, per_query_cands))
-    return [one(qg, c) for qg, c in zip(query_graphs, per_query_cands)]
+            return list(pool.map(one, query_graphs, per_query_cands,
+                                 timers))
+    return [one(qg, c, t)
+            for qg, c, t in zip(query_graphs, per_query_cands, timers)]
 
 
 class PEEngine(_Engine):
@@ -155,6 +195,7 @@ class PEEngine(_Engine):
                  embedder=None):
         super().__init__(config, data_graph, device, embedder)
         self.paths = None
+        self.build_timings = None
 
     def offline(self, device: bool = False):
         """Enumerate paths from degree-sorted starts, one orientation
@@ -172,22 +213,51 @@ class PEEngine(_Engine):
                                             dedup=True)
         return self
 
-    def build_index(self, block_size: int = 512, table: bool = False):
+    def build_index(self, block_size: int = 512, table: bool = False,
+                    resident=None, spill_dir=None, cache_bytes=None,
+                    cache: bool = True):
         """VDE on the device, then either PDE and the host packed index
         (attach_device uploads it), or with ``table=True`` the
-        table-mode index built on the device from the paths and the
-        VDE, ready for ``online``."""
+        table-mode index from the paths and the VDE, ready for
+        ``online``.
+
+        resident (table mode): True builds ``TablePESearch`` on the
+        device and raises ``MemoryError`` where it does not fit; False
+        builds ``StreamedPESearch`` on the host, bucket by bucket from
+        chunks of the paths (index/bucket_build.py), its partitions and
+        sorted table in
+        ``spill_dir`` where one is named and in host memory otherwise;
+        None builds resident where ``auto_resident`` says so and the
+        build fits (``builds_resident``).  ``cache_bytes`` and ``cache`` are
+        the streamed search's."""
         self.vertices = self._vde(self.graph)
-        if table:
-            self.index = None
-            self.searcher = TablePESearch.build_from_paths(
-                self.paths, self.vertices, self.device,
-                block_size=block_size, base_epsilon=self.config.epsilon)
-        else:
+        self.build_timings = None
+        if not table:
             self.searcher = None        # until attach_device uploads
             paths = torch.as_tensor(self.paths).cpu().numpy()
             self.index = PackedDominanceIndex.build(
                 gen_pde(self.vertices, paths), block_size=block_size)
+            return self
+        self.index = None
+        p, l = self.paths.shape
+        if resident is None:
+            on_device = (isinstance(self.paths, torch.Tensor)
+                         and self.paths.device == self.device)
+            resident = builds_resident(p, l, block_size, self.device,
+                                       on_device)
+        if resident:
+            self.searcher = TablePESearch.build_from_paths(
+                self.paths, self.vertices, self.device,
+                block_size=block_size, base_epsilon=self.config.epsilon)
+            return self
+        paths = torch.as_tensor(self.paths).cpu().numpy()
+        chunks = (paths[lo:lo + BUILD_CHUNK_PATHS]
+                  for lo in range(0, p, BUILD_CHUNK_PATHS))
+        self.searcher, self.build_timings = build_streamed_from_chunks(
+            chunks, p, self.graph, degree_sorted_nodes(self.graph), l,
+            self.vertices, self.device, block_size=block_size,
+            spill_dir=spill_dir, base_epsilon=self.config.epsilon,
+            cache_bytes=cache_bytes, cache=cache)
         return self
 
     def _query_table(self, qg: CSRGraph):

@@ -3,8 +3,8 @@ for PE (one entry per path) and PGE (one entry per vertex), on one
 device.
 
 Counterpart of gnnpe_tpu/index/device_packed.py's
-``DevicePackedPESearch`` and ``DevicePackedPGESearch`` in resident
-mode.  PE has two classes, one per layout:
+``DevicePackedPESearch`` and ``DevicePackedPGESearch``.  PE has three
+classes, one per layout:
 
   ``DevicePackedPESearch`` (array mode) — the constructor takes the
     gnnpe_tpu host index (its fields are numpy arrays) and uploads
@@ -16,19 +16,30 @@ mode.  PE has two classes, one per layout:
     stored per entry; labels, degrees and vde are gathered through
     per-vertex tables.  ``save``/``load`` write and read gnnpe_tpu's own
     npz format.
+  ``StreamedPESearch`` (streamed mode) — table mode for an index past
+    device memory: the sorted vid table stays on the host (pinned memory,
+    or an ``np.memmap`` on disk), built there by ``build_from_paths`` or
+    by index/bucket_build.py; the device keeps the per-vertex tables, the
+    summaries and, in ``DeviceChunkCache``, a fixed pool of leaf blocks
+    under LRU.  A chunk's vid rows reach the leaf test from the pool, or
+    with the cache off by a per-chunk upload.  ``auto_resident`` says
+    which of the two an index of a given size gets on a given device.
 
-Every class answers one protocol,
+The three differ in one hook of the search, ``_chunk_vids`` (a chunk's
+vid rows on the device), and in how they are built.  Every class answers
+one protocol,
 ``search(query, union=)``:
 
   phase 1 — block mask bool[Q, NB]: every query row against every block
     summary (label window, degree bound, upper-bound dominance).
   range prune — blocks outside a query row's contiguous run of possible
     exact-label matches go: PGE's blocks are label-sorted, table-mode
-    PE's are sorted by label signature.
+    and streamed PE's are sorted by label signature.
   selection — the blocks that survive for any row.
   phase 2 — the surviving blocks' rows are gathered and leaf-tested,
     gated by per-(row, block) survival.  Blocks go in chunks sized so
-    that the [Q, K·B, width] compare stays under ``CHUNK_ELEMS``.
+    that the [Q, K·B, width] compare stays under ``CHUNK_ELEMS`` (and,
+    streamed, within the cache pool).
   union — "host": the hit columns come back and candidates are
     extracted on the host; "device": a bool bitmap [nq, V] is written
     with index_put_ of True, which is idempotent and so deterministic.
@@ -42,14 +53,21 @@ and this one drops: uint32 mask packing, the fixed K chunk and
 power-of-two query, path and vertex buckets (they only avoided
 recompiles), the fused single dispatch, ``warm()``, the three-limb
 tables, and the ±3e38 pad sentinels — pad rows carry label -2, which no
-query label equals.
+query label equals.  Of the streamed mode: the cache's scratch slot and
+power-of-two upload buckets (fixed compiled shapes), buffer donation,
+the chunk uploader, and every environment variable — budgets are
+arguments, and ``None`` means a share of the device's free memory.
 """
 
 from __future__ import annotations
 
+import os
+import time
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from types import SimpleNamespace
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -63,10 +81,13 @@ from gnnpe_tpu_torch.match.filter import eps_threshold
 from gnnpe_tpu_torch.utils.device import as_device, free_bytes
 from gnnpe_tpu_torch.utils.timers import StageTimer
 
-__all__ = ["CHUNK_ELEMS", "DevicePackedPESearch", "DevicePackedPGESearch",
-           "PEQuery", "PGEQuery", "TablePESearch", "composite_sort_key",
-           "composite_sort_key_device", "key_tables", "key_tables_device",
-           "path_sig", "permute_fold", "sig_radix_of"]
+__all__ = ["CHUNK_ELEMS", "DeviceChunkCache", "DevicePackedPESearch",
+           "DevicePackedPGESearch", "PEQuery", "PGEQuery", "StreamedPESearch",
+           "TablePESearch", "auto_resident", "builds_resident",
+           "composite_sort_key",
+           "composite_sort_key_device", "fold_blocks_host", "key_tables",
+           "key_tables_device", "load", "path_sig", "permute_fold",
+           "sig_radix_of"]
 
 # ---- host sort-key helpers (numpy): the port's copy of gnnpe_tpu's -----
 
@@ -156,6 +177,21 @@ SIDECAR_BYTES = 1 << 30
 # the sorted key and the permutation (int64 each), and the key's
 # per-position temporaries.
 BUILD_BYTES_PER_PATH = 48
+# Shares of the device's free memory taken where a budget is left None:
+# gnnpe_tpu's ``hbm_budget_bytes`` gives a resident vid table 0.35 of the
+# device (the rest is for summaries, vertex tables and search buffers) and
+# its ``cache_budget_bytes`` gives the streamed mode's block pool 0.55 (no
+# table is resident beside it).
+RESIDENT_SHARE = 0.35
+CACHE_SHARE = 0.55
+# Host-to-device staging of streamed leaf blocks: a ring of STAGING_RING
+# pinned buffers of STAGING_ROWS vid rows each (``_StagingRing``).
+STAGING_ROWS = 1 << 19
+STAGING_RING = 4
+# Blocks one ``DeviceChunkCache.prefill`` step uploads.
+PREFILL_BLOCKS = 1024
+# Signature range of a pad block in a file gnnpe_tpu saved.
+PAD_SIG = 1 << 62
 
 
 def key_tables_device(vertices, device):
@@ -192,14 +228,14 @@ def composite_sort_key_device(paths: torch.Tensor, vertices,
     return (sig << 32) | u
 
 
-def _vertex_tables(vertices, device) -> dict:
-    """Per-vertex tables with one sentinel row at index V (label -2,
-    degree 0, zero embeddings) that pad rows gather through: the leaf
-    test's labels, degrees and f64 vde, and the fold's outward-rounded
-    f32 vde and x."""
+def _vertex_tables_host(vertices) -> dict:
+    """Per-vertex numpy tables with one sentinel row at index V (label
+    -2, degree 0, zero embeddings) that pad rows gather through: the
+    leaf test's labels, degrees and f64 vde, and the fold's
+    outward-rounded f32 vde and x."""
     def put(a, fill):
         pad = np.full((1,) + a.shape[1:], fill, a.dtype)
-        return torch.from_numpy(np.concatenate([a, pad])).to(device)
+        return np.concatenate([a, pad])
 
     return dict(
         labels=put(vertices.labels.astype(np.int32), -2),
@@ -208,6 +244,12 @@ def _vertex_tables(vertices, device) -> dict:
         vde_up=put(_outward(vertices.vde, True), 0.0),
         x_up=put(_outward(vertices.x, True), 0.0),
         x_dn=put(_outward(vertices.x, False), 0.0))
+
+
+def _vertex_tables(vertices, device, host: dict = None) -> dict:
+    """``_vertex_tables_host`` (or ``host``, already made) on ``device``."""
+    host = _vertex_tables_host(vertices) if host is None else host
+    return {k: torch.from_numpy(a).to(device) for k, a in host.items()}
 
 
 def permute_fold(paths: torch.Tensor, order: torch.Tensor, tables: dict,
@@ -245,7 +287,7 @@ def permute_fold(paths: torch.Tensor, order: torch.Tensor, tables: dict,
 
 def _check_fits(need: int, device, what: str) -> None:
     """Raise unless ``need`` bytes are free on ``device``; a table that
-    does not fit would need the streamed mode, which is not ported.
+    does not fit is served by ``StreamedPESearch``.
     Callers count the tables they keep and the per-path temporaries, not
     the fixed-size ones (a fold step, the vertex tables), so ``need`` is
     a lower bound: a build that passes can still meet CUDA's own
@@ -254,8 +296,8 @@ def _check_fits(need: int, device, what: str) -> None:
     if need > free:
         raise MemoryError(
             f"{what} needs {need} B and {device} has {free} B free; an "
-            "index past device memory needs the streamed mode (ROADMAP "
-            "Queue A 9), which is not ported")
+            "index past device memory is served streamed "
+            "(StreamedPESearch; build_index(table=True, resident=False))")
 
 
 def _host_copy(t: torch.Tensor) -> np.ndarray:
@@ -266,6 +308,246 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
     h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     h.copy_(t)
     return h.numpy()
+
+
+# ---- the index past device memory: host table, budgets, block cache ----
+
+
+def auto_resident(p: int, l: int, block_size: int, device,
+                  budget_bytes: Optional[float] = None) -> bool:
+    """Capacity model (gnnpe_tpu's ``auto_resident``): a PE index of
+    ``p`` paths of ``l`` vertices is device-resident iff its vid table,
+    padded to whole blocks, fits ``budget_bytes``; ``None`` means
+    ``RESIDENT_SHARE`` of the memory now free on ``device``."""
+    if budget_bytes is None:
+        budget_bytes = RESIDENT_SHARE * free_bytes(device)
+    return -(-p // block_size) * block_size * l * 4 <= budget_bytes
+
+
+def table_build_bytes(p: int, l: int, block_size: int,
+                      paths_on_device: bool) -> int:
+    """Device bytes ``TablePESearch.build_from_paths`` holds at its peak,
+    a lower bound: the padded vid table, the per-path temporaries and,
+    where the paths come from the host, their upload."""
+    return (-(-p // block_size) * block_size * l * 4
+            + p * BUILD_BYTES_PER_PATH
+            + (0 if paths_on_device else p * l * 4))
+
+
+def builds_resident(p: int, l: int, block_size: int, device,
+                    paths_on_device: bool,
+                    budget_bytes: Optional[float] = None) -> bool:
+    """What ``resident=None`` means where an index is built: resident iff
+    ``auto_resident`` says so and the build on the device, which needs
+    several times the table, fits the memory now free there."""
+    return (auto_resident(p, l, block_size, device, budget_bytes)
+            and table_build_bytes(p, l, block_size, paths_on_device)
+            <= free_bytes(device))
+
+
+def _host_table(rows: int, l: int, device, table_path: Optional[str]):
+    """An int32[rows, l] host table for the sorted vids: an ``np.memmap``
+    of ``table_path`` (the disk tier) where one is named, page-locked
+    memory beside a CUDA device, plain memory beside the CPU."""
+    if table_path is not None:
+        return np.memmap(table_path, dtype=np.int32, mode="w+",
+                         shape=(rows, l))
+    if torch.device(device).type == "cuda" and rows:
+        return torch.empty((rows, l), dtype=torch.int32,
+                           pin_memory=True).numpy()
+    return np.empty((rows, l), np.int32)
+
+
+def fold_blocks_host(rows: np.ndarray, g0: int, g1: int, b: int,
+                     tabs: dict, out) -> None:
+    """Summaries of blocks [g0, g1) into ``out`` = (ub, llo, lhi, deg)
+    from ``rows``, the [g0·b, g1·b) slice of the sorted vid table, on
+    the host: ``permute_fold``'s maxima and minima in numpy (gnnpe_tpu's
+    ``_fold_blocks``).  ``tabs``: ``_vertex_tables_host``."""
+    if g1 <= g0:
+        return
+    ub, llo, lhi, deg = out
+    d = tabs["vde_up"].shape[1]
+    for j in range(rows.shape[1]):
+        col, cs = rows[:, j], slice(j * d, (j + 1) * d)
+        ub[g0:g1, cs] = tabs["vde_up"][col].reshape(-1, b, d).max(1)
+        lhi[g0:g1, cs] = tabs["x_up"][col].reshape(-1, b, d).max(1)
+        llo[g0:g1, cs] = tabs["x_dn"][col].reshape(-1, b, d).min(1)
+        deg[g0:g1, j] = tabs["degrees"][col].reshape(-1, b).max(1)
+
+
+def empty_summaries(nb: int, l: int, d: int):
+    """Unfilled host summaries (ub, llo, lhi f32[nb, l·d], deg int32
+    [nb, l]) for ``fold_blocks_host``."""
+    return (np.empty((nb, l * d), np.float32), np.empty((nb, l * d),
+            np.float32), np.empty((nb, l * d), np.float32),
+            np.empty((nb, l), np.int32))
+
+
+def _host_fold_summaries(hv: np.ndarray, tabs: dict, b: int,
+                         workers: int = 2):
+    """Block summaries folded on the host over the whole sorted vid
+    table, in block-aligned pieces of about 8M rows on ``workers``
+    threads (numpy's gathers release the GIL)."""
+    rows, l = hv.shape
+    out = empty_summaries(rows // b, l, tabs["vde_up"].shape[1])
+    step = max(b, ((1 << 23) // b) * b)
+
+    def work(lo):
+        hi = min(lo + step, rows)
+        fold_blocks_host(hv[lo:hi], lo // b, hi // b, b, tabs, out)
+
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        list(pool.map(work, range(0, rows, step)))
+    return out
+
+
+class _StagingRing:
+    """Leaf blocks from the host table to the device through a ring of
+    ``STAGING_RING`` staging buffers of about ``STAGING_ROWS`` vid rows
+    each, page-locked beside a CUDA device.
+
+    ``pieces`` gathers a piece's blocks from the host table into the
+    next buffer with one index (an ``np.memmap`` faults its pages in
+    there) and queues its copy to the device without waiting.  Each
+    buffer carries the event of its last copy, and the host waits on
+    that event before it fills the buffer again, so a queued copy never
+    reads rows of a later piece.  What is in flight is bounded by the
+    ring: at most ``STAGING_RING`` pieces of page-locked memory, and on
+    the device the pieces not yet consumed on the stream."""
+
+    def __init__(self, device, block_size: int, l: int):
+        self.device = device
+        self._cuda = device.type == "cuda"
+        self.blocks = max(1, STAGING_ROWS // block_size)
+        self._bufs = [torch.empty((self.blocks, block_size, l),
+                                  dtype=torch.int32, pin_memory=self._cuda)
+                      for _ in range(STAGING_RING)]
+        self._events = [None] * STAGING_RING
+        self._turn = 0
+        self.uploaded_bytes = 0
+
+    def pieces(self, host_blocks: np.ndarray, blks: np.ndarray):
+        """Yields (lo, int32[n, B, L] on the device) for consecutive
+        pieces ``blks[lo:lo + n]`` of the block ids ``blks``;
+        ``host_blocks``: the host table as [NB, B, L]."""
+        for lo in range(0, len(blks), self.blocks):
+            i = self._turn
+            self._turn = (i + 1) % STAGING_RING
+            if self._events[i] is not None:
+                self._events[i].synchronize()
+            part = blks[lo:lo + self.blocks]
+            buf = self._bufs[i][:len(part)]
+            np.take(host_blocks, part, axis=0, out=buf.numpy(), mode="clip")
+            self.uploaded_bytes += buf.numel() * 4
+            if self._cuda:
+                dev = buf.to(self.device, non_blocking=True)
+                self._events[i] = torch.cuda.Event()
+                self._events[i].record()
+            else:
+                dev = buf.clone()
+            yield lo, dev
+
+
+class DeviceChunkCache:
+    """LRU cache of streamed leaf blocks on the device (gnnpe_tpu's
+    ``DeviceChunkCache`` on one shard): a fixed pool of ``capacity``
+    block slots, int32[capacity·B, L], an ``OrderedDict`` from block id
+    to slot in LRU order on the host, and only the misses are uploaded.
+
+    The pool is written in place (``index_copy_``) on the stream the
+    search runs on, and the leaf test gathers from it on the same
+    stream.  So a gather queued before a later chunk's upload reads the
+    slots as they were, and eviction never takes a block the chunk being
+    filled selects (``protect``): that is all the ordering the cache
+    needs.  A caller that searches on several streams must order them
+    itself.
+
+    Dropped from gnnpe_tpu's, which needed them for fixed compiled
+    shapes and donated buffers: the scratch slot for upload padding, the
+    power-of-two upload buckets, buffer donation and the shard axis."""
+
+    def __init__(self, device, l: int, block_size: int, num_blocks: int,
+                 budget_bytes: float, ring: _StagingRing):
+        self.device = device
+        self.l, self.b = l, block_size
+        self.budget_bytes = budget_bytes
+        per_slot = block_size * l * 4
+        self.capacity = max(0, min(int(budget_bytes // per_slot),
+                                   num_blocks))
+        if self.capacity == 0 and num_blocks:
+            raise ValueError(
+                f"a block cache of {budget_bytes} B holds no block of "
+                f"{per_slot} B; give it more or search with cache=False")
+        # Raises CUDA's out-of-memory error where the pool does not fit.
+        self.buf = torch.zeros((self.capacity * block_size, l),
+                               dtype=torch.int32, device=device)
+        self._ring = ring
+        self.map: "OrderedDict[int, int]" = OrderedDict()
+        self.next_free = 0
+        self.hits = self.misses = self.evictions = 0
+
+    def _alloc(self, protect) -> int:
+        if self.next_free < self.capacity:
+            self.next_free += 1
+            return self.next_free - 1
+        # Evict in LRU order, skipping the blocks the current chunk
+        # selects (this very chunk's gather is about to read them).
+        for blk in self.map:
+            if blk not in protect:
+                self.evictions += 1
+                return self.map.pop(blk)
+        raise RuntimeError("chunk larger than cache capacity")
+
+    def ensure(self, blks: np.ndarray, host_vids: np.ndarray) -> np.ndarray:
+        """Make every block of ``blks`` (at most ``capacity`` distinct
+        ids) pool-resident and return its slots int64[len(blks)];
+        uploads the misses, all gathered from ``host_vids`` by one index
+        per staging piece."""
+        slots = np.empty(len(blks), np.int64)
+        miss = []
+        for i, blk in enumerate(blks.tolist()):
+            got = self.map.get(blk)
+            if got is None:
+                miss.append(i)
+            else:
+                self.map.move_to_end(blk)
+                slots[i] = got
+        self.hits += len(blks) - len(miss)
+        self.misses += len(miss)
+        if not miss:
+            return slots
+        protect = set(blks.tolist())
+        miss = np.asarray(miss, np.int64)
+        for i in miss.tolist():
+            slots[i] = self.map[int(blks[i])] = self._alloc(protect)
+        pool = self.buf.view(self.capacity, self.b, self.l)
+        for lo, dev in self._ring.pieces(
+                host_vids.reshape(-1, self.b, self.l), blks[miss]):
+            into = torch.from_numpy(slots[miss[lo:lo + len(dev)]])
+            pool.index_copy_(0, into.to(self.device), dev)
+        return slots
+
+    def prefill(self, host_vids: np.ndarray, block_order: np.ndarray,
+                max_seconds: float = 1e9) -> int:
+        """Load the first ``capacity`` blocks of ``block_order`` that the
+        pool lacks (over the least recently used ones where it is full),
+        or fewer if ``max_seconds`` pass, before any query needs them;
+        returns the blocks loaded.  Prefilled blocks count as neither
+        hits nor misses."""
+        todo = [g for g in np.asarray(block_order).tolist()
+                if g not in self.map][:self.capacity]
+        t0 = time.perf_counter()
+        loaded = 0
+        step = max(1, min(PREFILL_BLOCKS, self.capacity))
+        for lo in range(0, len(todo), step):
+            part = np.asarray(todo[lo:lo + step], np.int64)
+            self.ensure(part, host_vids)
+            loaded += len(part)
+            if time.perf_counter() - t0 > max_seconds:
+                break
+        self.hits = self.misses = 0
+        return loaded
 
 
 @dataclass
@@ -290,7 +572,7 @@ class PGEQuery:
 class _PackedSearch:
     """The two-phase search shared by both variants.  Subclasses set
     the fields below and supply ``_prepare``, ``_phase1``, ``_prune``,
-    ``_leaf_mask``, ``_scatter`` and ``_extract``."""
+    ``_chunk_vids``, ``_leaf_mask``, ``_scatter`` and ``_extract``."""
 
     device: torch.device
     block_size: int
@@ -322,6 +604,10 @@ class _PackedSearch:
         return {k: v for k, v in vars(self).items()
                 if isinstance(v, torch.Tensor)}
 
+    def _chunk_limit(self, k: int) -> int:
+        """The blocks one phase-2 chunk may hold, at most ``k``."""
+        return k
+
     def search(self, query, union: str = "host") -> List[np.ndarray]:
         """Sorted candidate vertex ids per query vertex."""
         if union not in ("host", "device"):
@@ -339,7 +625,7 @@ class _PackedSearch:
         phase1 = int(bmask.any(0).sum())
         bmask = self._prune(q, bmask)
         sel = torch.nonzero(bmask.any(0)).squeeze(1)
-        k = max(1, CHUNK_ELEMS // (q.rows * b * self.width))
+        k = self._chunk_limit(max(1, CHUNK_ELEMS // (q.rows * b * self.width)))
         n_sel = sel.numel()
         self.last_stats = dict(blocks=nb, phase1=phase1, survived=n_sel,
                                chunks=-(-n_sel // k))
@@ -353,11 +639,12 @@ class _PackedSearch:
         for lo in range(0, n_sel, k):
             blk = sel[lo:lo + k]
             rows = (blk[:, None] * b + offs[None]).reshape(-1)
-            m = (self._leaf_mask(q, rows)
+            vids = self._chunk_vids(blk, rows)
+            m = (self._leaf_mask(q, rows, vids)
                  & bmask[:, blk].repeat_interleave(b, dim=1))
             if union == "device":
                 qi, col = torch.nonzero(m, as_tuple=True)
-                self._scatter(bitmap, q, qi, rows[col])
+                self._scatter(bitmap, q, qi, vids[col])
             else:
                 hit = torch.nonzero(m.any(0)).squeeze(1)
                 masks.append(m[:, hit].cpu().numpy())
@@ -370,10 +657,11 @@ class _PackedSearch:
 
 
 class _PESearch(_PackedSearch):
-    """What both PE modes share: the query rows, phase 1 over the block
+    """What the PE modes share: the query rows, phase 1 over the block
     summaries (f64 in array mode; table mode's f32 widen to f64 exactly
-    in each compare) and the vid lookups of the two unions.  A mode
-    supplies ``d_vids``, ``_host_vids`` and ``_leaf_mask``."""
+    in each compare) and the two unions over a chunk's vid rows.  A mode
+    supplies ``_chunk_vids`` (a chunk's vid rows int32[K·B, L] on the
+    device), ``_host_vids`` and ``_leaf_mask``."""
 
     def _prepare(self, query: PEQuery):
         rows = np.asarray(query.plan_rows, dtype=np.int64)
@@ -400,9 +688,11 @@ class _PESearch(_PackedSearch):
     def _prune(self, q, bmask: torch.Tensor) -> torch.Tensor:
         return bmask
 
-    def _scatter(self, bitmap, q, qi, rows) -> None:
-        bitmap[q.d_vids[qi].reshape(-1),
-               self.d_vids[rows].long().reshape(-1)] = True
+    def _chunk_vids(self, blk, rows) -> torch.Tensor:
+        return self.d_vids[rows]
+
+    def _scatter(self, bitmap, q, qi, vids) -> None:
+        bitmap[q.d_vids[qi].reshape(-1), vids.long().reshape(-1)] = True
 
     def _extract(self, q, mask, rows) -> List[np.ndarray]:
         return extract_candidates(mask, self._host_vids[rows], q.vids,
@@ -433,30 +723,32 @@ class DevicePackedPESearch(_PESearch):
         self.num_vertices = int(index.vids.max(initial=0)) + 1
         self.last_stats = None
 
-    def _leaf_mask(self, q, rows: torch.Tensor) -> torch.Tensor:
+    def _leaf_mask(self, q, rows, vids) -> torch.Tensor:
         return pe_mask_exact(self.d_labels[rows], self.d_degrees[rows],
                              self.d_pde[rows], q.labels, q.degrees, q.thresh)
 
 
-class TablePESearch(_PESearch):
-    """PE packed index resident on ``device`` in table mode, built there
-    by ``build_from_paths`` or read by ``load``: vids int32[NB·B, L] per
-    entry; the per-vertex tables ``t_labels``, ``t_degrees`` and
-    ``t_vde`` (f64) with a sentinel row at V, through which the leaf
-    test gathers; f32 block summaries; and the per-block signature
-    ranges of the sort key, which prune blocks after phase 1."""
+class _TableLayout(_PESearch):
+    """What table mode and streamed mode share: the per-vertex tables
+    ``t_labels``, ``t_degrees`` and ``t_vde`` (f64) with a sentinel row
+    at V, through which the leaf test gathers a chunk's vid rows; f32
+    block summaries; the per-block signature ranges of the sort key,
+    which prune blocks after phase 1; the sorted vid table on the host
+    (``_host_vids``); ``save`` and ``load``.  A mode supplies
+    ``_chunk_vids``."""
 
-    def __init__(self, vertices, tables, vids, host_vids, summaries,
-                 sig_first, sig_last, sig_radix, num_entries, block_size,
-                 base_epsilon: float = EPSILON):
-        self.device = vids.device
+    streamed = False
+
+    def _init_layout(self, vertices, tables, host_vids, summaries,
+                     sig_first, sig_last, sig_radix, num_entries,
+                     block_size, base_epsilon) -> None:
+        self.device = tables["labels"].device
         self.base_epsilon = base_epsilon
         self.block_size = block_size
         self.num_entries = num_entries
         self.num_blocks = summaries[0].shape[0]
         self.width = summaries[0].shape[1]
         self.num_vertices = vertices.num_vertices
-        self.d_vids = vids
         self.t_labels = tables["labels"]
         self.t_degrees = tables["degrees"]
         self.t_vde = tables["vde"]
@@ -467,6 +759,110 @@ class TablePESearch(_PESearch):
         self._sig_radix = sig_radix
         self.build_phase_ms = None
         self.last_stats = None
+
+    def save(self, path: str) -> None:
+        """Write the index in gnnpe_tpu's npz format (its ``save``): the
+        sorted vid table, the f32 summaries, the signature ranges and
+        ``meta`` = [entries, block size, blocks, blocks per shard,
+        streamed, signature radix, sidecar, L].  A table above
+        ``SIDECAR_BYTES``, and any table that is an ``np.memmap``, goes
+        raw to ``<path>.vids.bin`` in bounded pieces.  The per-vertex
+        tables are not stored: ``load`` rebuilds them from the
+        embeddings."""
+        hv = self._host_vids
+        big = isinstance(hv, np.memmap) or hv.nbytes > SIDECAR_BYTES
+        if big:
+            step = max(1, (1 << 26) // hv.shape[1])
+            with open(path + ".vids.bin", "wb") as f:
+                for lo in range(0, len(hv), step):
+                    f.write(np.ascontiguousarray(hv[lo:lo + step]).tobytes())
+        np.savez(path,
+                 blk_ub=self.b_ub.cpu().numpy(),
+                 blk_llo=self.b_llo.cpu().numpy(),
+                 blk_lhi=self.b_lhi.cpu().numpy(),
+                 blk_deg=self.b_deg.cpu().numpy(),
+                 blk_sig_first=self._blk_sig_first,
+                 blk_sig_last=self._blk_sig_last,
+                 meta=np.array([self.num_entries, self.block_size,
+                                self.num_blocks, self.num_blocks,
+                                int(self.streamed), self._sig_radix,
+                                int(big), hv.shape[1]], np.int64),
+                 host_vids=(np.zeros((0, hv.shape[1]), np.int32) if big
+                            else np.asarray(hv)))
+
+    @staticmethod
+    def load(path: str, vertices, device, base_epsilon: float = EPSILON,
+             cache_bytes: Optional[float] = None, cache: bool = True):
+        """The index from a file ``save`` wrote, here or in gnnpe_tpu
+        (with any number of shards: its pad blocks carry the signature
+        range 2^62 and never survive), as the class the file names: a
+        ``TablePESearch``, which raises ``MemoryError`` where it does
+        not fit, or for a streamed file a ``StreamedPESearch`` (with
+        ``cache_bytes`` and ``cache``) over an ``np.memmap`` of the
+        sidecar, or over the table in the file.  ``vertices`` are the
+        embeddings the index was built from."""
+        device = as_device(device)
+        with np.load(path) as z:
+            meta = [int(x) for x in z["meta"]]
+            arrays = {k: z[k] for k in z.files}
+        p, b, streamed, sig_radix = meta[0], meta[1], meta[4], meta[5]
+        if not (len(meta) > 6 and meta[6]):
+            hv = arrays["host_vids"]
+        elif streamed:
+            hv = np.memmap(path + ".vids.bin", dtype=np.int32,
+                           mode="r").reshape(-1, meta[7])
+        else:
+            hv = np.fromfile(path + ".vids.bin", dtype=np.int32).reshape(
+                -1, meta[7])
+        nb = len(arrays["blk_ub"])
+        if len(hv) != nb * b:
+            raise ValueError(f"{path}: {len(hv)} vid rows for {nb} blocks "
+                             f"of {b}")
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        if not streamed:
+            _check_fits(hv.nbytes, device, f"loading {path}")
+        tables = _vertex_tables(vertices, device)
+        layout = (tuple(put(arrays[k]) for k in ("blk_ub", "blk_llo",
+                                                 "blk_lhi", "blk_deg")),
+                  arrays["blk_sig_first"], arrays["blk_sig_last"], sig_radix,
+                  p, b, base_epsilon)
+        if streamed:
+            return StreamedPESearch(vertices, tables, hv, *layout,
+                                    cache_bytes=cache_bytes, cache=cache)
+        return TablePESearch(vertices, tables, put(hv), hv, *layout)
+
+    def _prune(self, q, bmask: torch.Tensor) -> torch.Tensor:
+        """A row's exact-label matches lie in the blocks whose signature
+        range holds its signature (conservative: equal labels give equal
+        signatures)."""
+        qsig = path_sig(q.host_labels, self._sig_radix)
+        return self._range_prune(
+            bmask, np.searchsorted(self._blk_sig_last, qsig, side="left"),
+            np.searchsorted(self._blk_sig_first, qsig, side="right"))
+
+    def _leaf_mask(self, q, rows, vids) -> torch.Tensor:
+        vid = vids.long()
+        return pe_mask_exact(self.t_labels[vid], self.t_degrees[vid],
+                             self.t_vde[vid].reshape(len(vid), -1),
+                             q.labels, q.degrees, q.thresh)
+
+
+load = _TableLayout.load
+
+
+class TablePESearch(_TableLayout):
+    """PE packed index resident on ``device`` in table mode, built there
+    by ``build_from_paths`` or read by ``load``: the layout of
+    ``_TableLayout`` with the vid table int32[NB·B, L] on the device
+    (``d_vids``), from which ``_chunk_vids`` gathers."""
+
+    def __init__(self, vertices, tables, vids, host_vids, summaries,
+                 sig_first, sig_last, sig_radix, num_entries, block_size,
+                 base_epsilon: float = EPSILON):
+        self._init_layout(vertices, tables, host_vids, summaries, sig_first,
+                          sig_last, sig_radix, num_entries, block_size,
+                          base_epsilon)
+        self.d_vids = vids
 
     @classmethod
     def build_from_paths(cls, paths, vertices, device,
@@ -491,8 +887,7 @@ class TablePESearch(_PESearch):
         nb = -(-p // block_size)
         on_device = (isinstance(paths, torch.Tensor)
                      and paths.device == device)
-        _check_fits(nb * block_size * l * 4 + p * BUILD_BYTES_PER_PATH
-                    + (0 if on_device else p * l * 4),
+        _check_fits(table_build_bytes(p, l, block_size, on_device),
                     device, f"a table-mode build of {p} paths")
         t = StageTimer(device)
         with t.stage("tables"):
@@ -523,84 +918,210 @@ class TablePESearch(_PESearch):
         self.build_phase_ms = t.times_ms
         return self
 
-    def save(self, path: str) -> None:
-        """Write the index in gnnpe_tpu's npz format (its ``save``): the
-        sorted vid table, the f32 summaries, the signature ranges and
-        ``meta`` = [entries, block size, blocks, blocks per shard,
-        streamed, signature radix, sidecar, L].  A table above
-        ``SIDECAR_BYTES`` goes raw to ``<path>.vids.bin``.  The
-        per-vertex tables are not stored: ``load`` rebuilds them from
-        the embeddings."""
-        hv = self._host_vids
-        big = hv.nbytes > SIDECAR_BYTES
-        if big:
-            step = max(1, (1 << 26) // hv.shape[1])
-            with open(path + ".vids.bin", "wb") as f:
-                for lo in range(0, len(hv), step):
-                    f.write(np.ascontiguousarray(hv[lo:lo + step]).tobytes())
-        np.savez(path,
-                 blk_ub=self.b_ub.cpu().numpy(),
-                 blk_llo=self.b_llo.cpu().numpy(),
-                 blk_lhi=self.b_lhi.cpu().numpy(),
-                 blk_deg=self.b_deg.cpu().numpy(),
-                 blk_sig_first=self._blk_sig_first,
-                 blk_sig_last=self._blk_sig_last,
-                 meta=np.array([self.num_entries, self.block_size,
-                                self.num_blocks, self.num_blocks, 0,
-                                self._sig_radix, int(big), hv.shape[1]],
-                               np.int64),
-                 host_vids=(np.zeros((0, hv.shape[1]), np.int32) if big
-                            else hv))
+
+class StreamedPESearch(_TableLayout):
+    """PE packed index past device memory: ``_TableLayout`` with the
+    sorted vid table on the host only (``_host_vids``: page-locked
+    memory, or an ``np.memmap`` for the disk tier), so the index is
+    bounded by host memory or disk and not by the device.  Built on the
+    host by ``build_from_paths`` or bucket by bucket by
+    index/bucket_build.py, or read by ``load``.
+
+    ``_chunk_vids`` brings a chunk's vid rows to the device: from the
+    ``DeviceChunkCache`` pool by slot, after the chunk's misses were
+    uploaded, or with ``cache=False`` by an upload of the chunk's
+    host-gathered rows.  Both go through one ring of page-locked staging
+    buffers (``_StagingRing``), which is what bounds the host memory in
+    flight; the pool has one copy, written in place on the stream the
+    search runs on.
+
+    cache_bytes: the pool's budget; ``None`` means ``CACHE_SHARE`` of
+    the device's free memory when the pool is first needed.  A chunk
+    never holds more blocks than the pool (``_chunk_limit``), so a small
+    pool makes more chunks and is never switched off; a budget under
+    one block raises, and so does a pool that the device cannot
+    allocate (``degrade_cache`` shrinks the budget for a retry).
+    ``last_stats`` gains ``cache_hits``, ``cache_misses`` and
+    ``uploaded_bytes`` per search."""
+
+    streamed = True
+
+    def __init__(self, vertices, tables, host_vids, summaries, sig_first,
+                 sig_last, sig_radix, num_entries, block_size,
+                 base_epsilon: float = EPSILON,
+                 cache_bytes: Optional[float] = None, cache: bool = True,
+                 owned_table_path: Optional[str] = None):
+        self._init_layout(vertices, tables, host_vids, summaries, sig_first,
+                          sig_last, sig_radix, num_entries, block_size,
+                          base_epsilon)
+        self.cache_bytes = cache_bytes
+        self.use_cache = cache
+        self._cache = None
+        self._ring = _StagingRing(self.device, block_size,
+                                  host_vids.shape[1])
+        # The disk-tier table of a bucketed build belongs to the index
+        # and goes with ``close`` (``save`` writes its own sidecar).
+        self._owned_table_path = owned_table_path
 
     @classmethod
-    def load(cls, path: str, vertices, device,
-             base_epsilon: float = EPSILON) -> "TablePESearch":
-        """The index from a file ``save`` wrote, here or in gnnpe_tpu
-        (with any number of shards: its pad blocks carry the signature
-        range 2^62 and never survive).  ``vertices`` are the embeddings
-        the index was built from.  A streamed index raises
-        ``NotImplementedError``; one that does not fit raises
-        ``MemoryError``."""
+    def build_from_paths(cls, paths, vertices, device,
+                         block_size: int = 512,
+                         base_epsilon: float = EPSILON,
+                         cache_bytes: Optional[float] = None,
+                         cache: bool = True,
+                         workers: int = 2) -> "StreamedPESearch":
+        """The index built on the host in one piece (gnnpe_tpu's
+        ``build_from_paths(resident=False)``): the numpy composite sort
+        key, one stable argsort, the permutation gather into the host
+        table, the signature ranges, and the summaries folded on the
+        host; only the summaries and the per-vertex tables go to
+        ``device``.  The vid table, the summaries and the ranges equal
+        ``TablePESearch.build_from_paths``'s.  Stage times (ms) land in
+        ``build_phase_ms``."""
         device = as_device(device)
-        with np.load(path) as z:
-            meta = [int(x) for x in z["meta"]]
-            if meta[4]:
-                raise NotImplementedError(
-                    f"{path} holds a streamed index; the streamed mode "
-                    "(ROADMAP Queue A 9) is not ported")
-            arrays = {k: z[k] for k in z.files}
-        p, b, sig_radix = meta[0], meta[1], meta[5]
-        if len(meta) > 6 and meta[6]:
-            hv = np.fromfile(path + ".vids.bin", dtype=np.int32).reshape(
-                -1, meta[7])
+        if block_size < 1:
+            raise ValueError(f"block_size must be positive: {block_size}")
+        paths = (paths.cpu().numpy() if isinstance(paths, torch.Tensor)
+                 else np.asarray(paths))
+        p, l = paths.shape
+        nb = -(-p // block_size)
+        t = StageTimer()
+        with t.stage("tables"):
+            host_tabs = _vertex_tables_host(vertices)
+        with t.stage("host_sort"):
+            key = composite_sort_key(paths, vertices)
+            order = np.argsort(key, kind="stable")
+        with t.stage("host_vids"):
+            hv = _host_table(nb * block_size, l, device, None)
+            np.take(paths, order, axis=0, out=hv[:p], mode="clip")
+            hv[p:] = vertices.num_vertices
+            sig = key[order] >> 32
+            first = np.arange(nb) * block_size
+            sig_first = sig[first]
+            sig_last = sig[np.minimum(first + block_size, p) - 1]
+            del key, order, sig
+        with t.stage("host_fold"):
+            summaries = _host_fold_summaries(hv, host_tabs, block_size,
+                                             workers)
+        with t.stage("summaries_put"):
+            self = cls(vertices, _vertex_tables(vertices, device, host_tabs),
+                       hv, tuple(torch.from_numpy(a).to(device)
+                                 for a in summaries),
+                       sig_first, sig_last, sig_radix_of(vertices), p,
+                       block_size, base_epsilon, cache_bytes, cache)
+        self.build_phase_ms = t.times_ms
+        return self
+
+    def resident_tensors(self) -> dict:
+        out = super().resident_tensors()
+        if self._cache is not None:
+            out["cache_pool"] = self._cache.buf
+        return out
+
+    def _ensure_cache(self) -> Optional[DeviceChunkCache]:
+        """The block cache, made at first use; None with ``cache=False``."""
+        if self.use_cache and self._cache is None:
+            budget = (CACHE_SHARE * free_bytes(self.device)
+                      if self.cache_bytes is None else self.cache_bytes)
+            self._cache = DeviceChunkCache(
+                self.device, self._host_vids.shape[1], self.block_size,
+                self.num_blocks, budget, self._ring)
+        return self._cache
+
+    def degrade_cache(self, factor: float = 0.5) -> float:
+        """Free the pool and shrink its budget by ``factor`` for the next
+        search, which makes the pool anew: what a caller does when the
+        device runs out of memory beside a full pool.  Returns the new
+        budget in bytes."""
+        if self._cache is not None:
+            cur = self._cache.budget_bytes
+        elif self.cache_bytes is not None:
+            cur = self.cache_bytes
         else:
-            hv = arrays["host_vids"]
-        nb = len(arrays["blk_ub"])
-        if len(hv) != nb * b:
-            raise ValueError(f"{path}: {len(hv)} vid rows for {nb} blocks "
-                             f"of {b}")
-        _check_fits(hv.nbytes, device, f"loading {path}")
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        return cls(vertices, _vertex_tables(vertices, device), put(hv), hv,
-                   tuple(put(arrays[k]) for k in ("blk_ub", "blk_llo",
-                                                  "blk_lhi", "blk_deg")),
-                   arrays["blk_sig_first"], arrays["blk_sig_last"],
-                   sig_radix, p, b, base_epsilon)
+            cur = CACHE_SHARE * free_bytes(self.device)
+        self._cache = None
+        self.cache_bytes = cur * factor
+        return self.cache_bytes
 
-    def _prune(self, q, bmask: torch.Tensor) -> torch.Tensor:
-        """A row's exact-label matches lie in the blocks whose signature
-        range holds its signature (conservative: equal labels give equal
-        signatures)."""
-        qsig = path_sig(q.host_labels, self._sig_radix)
-        return self._range_prune(
-            bmask, np.searchsorted(self._blk_sig_last, qsig, side="left"),
-            np.searchsorted(self._blk_sig_first, qsig, side="right"))
+    def prefill_cache(self, max_seconds: float = 1e9,
+                      order: str = "popular") -> int:
+        """Load blocks into the pool before queries run, up to its
+        capacity.  ``order="popular"`` takes the longest runs of blocks
+        of one label signature first (query label sequences follow the
+        data's, so long runs are likelier to be touched and cost more to
+        miss), ``"index"`` takes blocks in index order.  Returns the
+        blocks loaded, 0 with the cache off."""
+        if order not in ("popular", "index"):
+            raise ValueError(f"order must be 'popular' or 'index', "
+                             f"got {order!r}")
+        self._check_open()
+        cache = self._ensure_cache()
+        if cache is None:
+            return 0
+        # Pad blocks of a file gnnpe_tpu saved are never searched.
+        real = np.nonzero(np.asarray(self._blk_sig_first) < PAD_SIG)[0]
+        if order == "popular" and len(real):
+            sig = np.asarray(self._blk_sig_first)[real]
+            new_run = np.ones(len(real), bool)
+            np.not_equal(sig[1:], sig[:-1], out=new_run[1:])
+            run_id = np.cumsum(new_run) - 1
+            run_len = np.bincount(run_id)
+            real = real[np.argsort(-run_len[run_id], kind="stable")]
+        return cache.prefill(self._host_vids, real, max_seconds)
 
-    def _leaf_mask(self, q, rows: torch.Tensor) -> torch.Tensor:
-        vid = self.d_vids[rows].long()
-        return pe_mask_exact(self.t_labels[vid], self.t_degrees[vid],
-                             self.t_vde[vid].reshape(len(rows), -1),
-                             q.labels, q.degrees, q.thresh)
+    def close(self) -> None:
+        """Free the device's pool, tables and summaries, drop the host
+        table and unlink the disk-tier file a bucketed build left (the
+        index owns it; a mapped file's space is freed at the last
+        unmap).  A closed index raises on ``search``."""
+        self._cache = None
+        self._ring = None
+        self.t_labels = self.t_degrees = self.t_vde = None
+        self.b_ub = self.b_llo = self.b_lhi = self.b_deg = None
+        self._host_vids = None
+        if self._owned_table_path is not None:
+            tp, self._owned_table_path = self._owned_table_path, None
+            try:
+                os.unlink(tp)
+            except OSError:
+                pass
+
+    def _check_open(self) -> None:
+        if self._host_vids is None:
+            raise RuntimeError("this StreamedPESearch was closed")
+
+    def search(self, query, union: str = "host") -> List[np.ndarray]:
+        self._check_open()
+        cache = self._ensure_cache()
+        before = (cache.hits, cache.misses) if cache else None
+        uploaded = self._ring.uploaded_bytes
+        out = super().search(query, union)
+        if self.last_stats is not None:
+            self.last_stats["uploaded_bytes"] = (self._ring.uploaded_bytes
+                                                 - uploaded)
+            if cache:
+                self.last_stats.update(cache_hits=cache.hits - before[0],
+                                       cache_misses=cache.misses - before[1])
+        return out
+
+    def _chunk_limit(self, k: int) -> int:
+        return min(k, self._cache.capacity) if self._cache else k
+
+    def _chunk_vids(self, blk, rows) -> torch.Tensor:
+        blks = blk.cpu().numpy()
+        b, l = self.block_size, self._host_vids.shape[1]
+        if self._cache is not None:
+            slots = torch.from_numpy(self._cache.ensure(
+                blks, self._host_vids)).to(self.device)
+            offs = torch.arange(b, device=self.device)
+            return self._cache.buf[(slots[:, None] * b + offs[None]
+                                    ).reshape(-1)]
+        out = torch.empty((len(blks), b, l), dtype=torch.int32,
+                          device=self.device)
+        for lo, dev in self._ring.pieces(
+                self._host_vids.reshape(-1, b, l), blks):
+            out[lo:lo + len(dev)] = dev
+        return out.view(-1, l)
 
 
 class DevicePackedPGESearch(_PackedSearch):
@@ -662,14 +1183,17 @@ class DevicePackedPGESearch(_PackedSearch):
             bmask, np.searchsorted(self._blk_lab_last, lab, side="left"),
             np.searchsorted(self._blk_lab_first, lab, side="right"))
 
-    def _leaf_mask(self, q, rows: torch.Tensor) -> torch.Tensor:
+    def _chunk_vids(self, blk, rows) -> torch.Tensor:
+        return self.d_order[rows]
+
+    def _leaf_mask(self, q, rows, vids) -> torch.Tensor:
         return pge_mask_exact(self.d_labels[rows], self.d_degrees[rows],
                               self.d_ghi[rows], self.d_llo[rows],
                               self.d_lhi[rows], q.labels, q.degrees,
                               q.glo, q.llo, q.lhi)
 
-    def _scatter(self, bitmap, q, qi, rows) -> None:
-        bitmap[qi, self.d_order[rows]] = True
+    def _scatter(self, bitmap, q, qi, vids) -> None:
+        bitmap[qi, vids] = True
 
     def _extract(self, q, mask, rows) -> List[np.ndarray]:
         vid_cols = self._order[rows]

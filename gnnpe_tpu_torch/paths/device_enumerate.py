@@ -136,17 +136,24 @@ def enumerate_paths_device(graph: CSRGraph, starts,
     return PathEnumerator(graph, device, cap)(starts, num_vertices_per_path)
 
 
-def enumerate_dedup_device(graph: CSRGraph, order,
-                           num_vertices_per_path: int, device) -> torch.Tensor:
+def dedup_chunks(graph: CSRGraph, order, num_vertices_per_path: int,
+                 device):
     """``enumerate_paths(graph, order, L, dedup=True)``'s rows as int32
-    [P, L] on ``device``: every start chunk deduplicated as it comes, so
-    the directed rows of one chunk at most are held at once."""
+    [n, L] tensors on ``device``, one per start chunk, in order: every
+    chunk deduplicated as it comes, so the directed rows of one chunk at
+    most are held at once."""
     device = as_device(device)
     rank = torch.from_numpy(start_ranks(order, graph.num_vertices)).to(device)
-    parts = [rows[dedup_mask(rows, rank)] for rows in
-             PathEnumerator(graph, device).chunks(order,
-                                                  num_vertices_per_path)]
+    for rows in PathEnumerator(graph, device).chunks(order,
+                                                     num_vertices_per_path):
+        yield rows[dedup_mask(rows, rank)]
+
+
+def enumerate_dedup_device(graph: CSRGraph, order,
+                           num_vertices_per_path: int, device) -> torch.Tensor:
+    """``dedup_chunks`` in one int32[P, L] tensor on ``device``."""
+    parts = list(dedup_chunks(graph, order, num_vertices_per_path, device))
     if not parts:
         return torch.zeros((0, num_vertices_per_path), dtype=torch.int32,
-                           device=device)
+                           device=as_device(device))
     return torch.cat(parts)

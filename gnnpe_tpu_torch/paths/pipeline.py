@@ -9,12 +9,14 @@ and embedding: paths enumerated and deduplicated on the device chunk by
 chunk, then the table-mode index built from them.  Its output equals
 the sequential ``enumerate_paths(dedup=True)`` plus ``build_from_paths``:
 chunks partition the start order and the dedup rule is local to a row.
+Where the table does not fit the device (``resident``), the chunks go
+to the host as they are enumerated and the streamed index is built from
+them bucket by bucket (index/bucket_build.py), so the device never holds
+all paths either.
 
 gnnpe_tpu overlapped the stages with a worker pool, streamed the
 unsorted table through a chunk uploader and prewarmed the fold on a
-thread; CUDA queues work asynchronously, so none of that is needed.  The
-streamed (bucketed) branch waits for the streamed mode (ROADMAP Queue
-A 9).
+thread; CUDA queues work asynchronously, so none of that is needed.
 """
 
 from __future__ import annotations
@@ -25,9 +27,13 @@ import numpy as np
 import torch
 
 from gnnpe_tpu_torch.graph.csr import CSRGraph, to_device
-from gnnpe_tpu_torch.index.device_packed import TablePESearch
+from gnnpe_tpu_torch.index.bucket_build import build_streamed_from_chunks
+from gnnpe_tpu_torch.index.device_packed import (StreamedPESearch,
+                                                 TablePESearch,
+                                                 builds_resident)
 from gnnpe_tpu_torch.ops.spmm import neighbor_sum
-from gnnpe_tpu_torch.paths.device_enumerate import (enumerate_dedup_device,
+from gnnpe_tpu_torch.paths.device_enumerate import (dedup_chunks,
+                                                    enumerate_dedup_device,
                                                     enumerate_paths_device)
 from gnnpe_tpu_torch.utils.device import as_device
 from gnnpe_tpu_torch.utils.timers import StageTimer
@@ -52,23 +58,71 @@ def offline_pipelined(graph: CSRGraph, order: np.ndarray,
     return paths, vde[paths.long()].flatten(1)
 
 
+def _known_path_count(graph: CSRGraph, num_vertices_per_path: int):
+    """The deduplicated path count before enumeration, for 2- and
+    3-vertex paths (one orientation per edge; Σ deg·(deg−1) directed
+    3-vertex paths, halved by the dedup); None for longer paths."""
+    deg = np.diff(graph.offsets).astype(np.int64)
+    if num_vertices_per_path == 2:
+        return int(graph.num_edges)
+    if num_vertices_per_path == 3:
+        return int((deg * (deg - 1)).sum()) // 2
+    return None
+
+
 def offline_build_pipelined(graph: CSRGraph, order: np.ndarray,
                             num_vertices_per_path: int, vertices, device,
-                            block_size: int = 512):
-    """PE offline stage through the resident table-mode index on
-    ``device``.  Returns (paths int32[P, L] on the device, in
-    enumeration order; the ``TablePESearch``, whose ``build_phase_ms``
+                            block_size: int = 512, resident=None,
+                            spill_dir=None, cache_bytes=None,
+                            cache: bool = True, budget_bytes=None):
+    """PE offline stage through the table-mode index on ``device``.
+
+    resident: True builds the resident ``TablePESearch`` (``MemoryError``
+    where it does not fit).  None asks ``builds_resident`` with the path
+    count known beforehand and ``budget_bytes`` as ``auto_resident``'s;
+    paths of more than 3 vertices, whose count is not known, build
+    resident.  False builds the ``StreamedPESearch``: bucketed where the
+    count is known, every enumerated chunk copied to the host, keyed and
+    partitioned (into ``spill_dir`` where one is named), else in one
+    piece on the host (gnnpe_tpu also builds 2-vertex paths in one
+    piece; the index is the same).  ``cache_bytes`` and ``cache`` are
+    the streamed search's.
+
+    Returns (paths int32[P, L]: on the device in enumeration order after
+    a resident build, the index's host table in index order after a
+    streamed one — the same rows; the search, whose ``build_phase_ms``
     holds the build's stages; timings in s: ``enumerate_s`` (with the
-    dedup), ``build_s`` and ``total_s``)."""
+    dedup), ``build_s`` and ``total_s``, and after a streamed build
+    ``mode`` and bucket_build's counts)."""
     device = as_device(device)
+    l = num_vertices_per_path
     t_all = time.perf_counter()
+    known_p = _known_path_count(graph, l)
+    if resident is None:
+        resident = known_p is None or builds_resident(
+            known_p, l, block_size, device, True, budget_bytes)
+    if not resident and known_p is not None:
+        chunks = (rows.cpu().numpy()
+                  for rows in dedup_chunks(graph, order, l, device))
+        idx, timings = build_streamed_from_chunks(
+            chunks, known_p, graph, order, l, vertices, device,
+            block_size=block_size, spill_dir=spill_dir,
+            cache_bytes=cache_bytes, cache=cache)
+        # The enumeration runs inside the partition stage.
+        timings["enumerate_s"] = timings["partition_s"]
+        timings["total_s"] = time.perf_counter() - t_all
+        return idx._host_vids[:known_p], idx, timings
     t = StageTimer(device)
     with t.stage("enumerate"):
-        paths = enumerate_dedup_device(graph, order, num_vertices_per_path,
-                                       device)
+        paths = enumerate_dedup_device(graph, order, l, device)
     with t.stage("build"):
-        idx = TablePESearch.build_from_paths(paths, vertices, device,
-                                             block_size=block_size)
+        if resident:
+            idx = TablePESearch.build_from_paths(paths, vertices, device,
+                                                 block_size=block_size)
+        else:
+            idx = StreamedPESearch.build_from_paths(
+                paths, vertices, device, block_size=block_size,
+                cache_bytes=cache_bytes, cache=cache)
     timings = {f"{k}_s": v / 1e3 for k, v in t.times_ms.items()}
     timings["total_s"] = time.perf_counter() - t_all
     return paths, idx, timings

@@ -206,7 +206,7 @@ def test_build_raises_when_it_does_not_fit(pe_paths, table_pair,
                                            monkeypatch):
     vertices, _ = table_pair
     monkeypatch.setattr(device_packed, "free_bytes", lambda device: 1000)
-    with pytest.raises(MemoryError, match="Queue A 9"):
+    with pytest.raises(MemoryError, match="resident=False"):
         TablePESearch.build_from_paths(pe_paths, vertices, "cpu")
 
 

@@ -1,15 +1,28 @@
 """The port's native-f64 dominance masks against gnnpe_tpu's three-limb
 f32 masks (split3/ge3), including thresholds equal to a data value and
-one ulp either side of it."""
+one ulp either side of it; and the flat ``pe_candidates_device`` against
+gnnpe_tpu's and against both packages' f64 host filter, exactly."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gnnpe_tpu.embed.pde import gen_pde, gen_query_pde_table
+from gnnpe_tpu.embed.vde import gen_vde
+from gnnpe_tpu.graph.partition import degree_sorted_nodes
+from gnnpe_tpu.io.datasets import powerlaw_graph, sample_query
+from gnnpe_tpu.match import device_filter as jax_filter
 from gnnpe_tpu.match.device_filter import (pe_mask_device_exact,
                                            pge_mask_device_exact, split3)
-from gnnpe_tpu_torch.match.device_filter import pe_mask_exact, pge_mask_exact
+from gnnpe_tpu.match.filter import pe_candidates as jax_pe_candidates
+from gnnpe_tpu.match.plan import greedy_path_cover
+from gnnpe_tpu.paths.enumerate import enumerate_paths
+from gnnpe_tpu_torch.match import device_filter
+from gnnpe_tpu_torch.match.device_filter import (pe_candidates_device,
+                                                 pe_mask_exact,
+                                                 pge_mask_exact)
+from gnnpe_tpu_torch.match.filter import pe_candidates
 
 
 def _nudged(rng, t):
@@ -73,3 +86,37 @@ def test_pge_mask_equals_limb_mask(seed):
                          t(q_llo), t(q_lhi)).numpy()
     assert want.any() and not want.all()
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("chunk_elems", [None, 5000])
+def test_pe_candidates_device_equals_jax_and_host(chunk_elems, monkeypatch):
+    """Whole and in many chunks over the data paths (5,000 elements make
+    chunks of a few dozen rows)."""
+    g = powerlaw_graph(600, 2400, 6, seed=4, max_degree=40)
+    paths, _ = enumerate_paths(g, degree_sorted_nodes(g), 3, dedup=True)
+    data = gen_pde(gen_vde(g, 2), paths)
+    if chunk_elems:
+        monkeypatch.setattr(device_filter, "FLAT_CHUNK_ELEMS", chunk_elems)
+    total = 0
+    for s in range(3):
+        qg = sample_query(g, 6, seed=s)
+        qp, _ = enumerate_paths(qg, np.arange(qg.num_vertices), 3,
+                                dedup=True)
+        q_pde, weight, _ = gen_query_pde_table(gen_vde(qg, 2), qp)
+        plan = greedy_path_cover(qp, weight, qg.num_vertices)
+        got = pe_candidates_device(data, q_pde, plan, qg.num_vertices, "cpu")
+        for want in (
+                jax_filter.pe_candidates_device(data, q_pde, plan,
+                                                qg.num_vertices),
+                jax_pe_candidates(data, q_pde, plan, qg.num_vertices),
+                pe_candidates(data, q_pde, plan, qg.num_vertices)):
+            assert len(got) == len(want) == qg.num_vertices
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and np.array_equal(a, b)
+        total += sum(map(len, got))
+    assert total > 0
+    none = pe_candidates_device(data, q_pde, plan[:0], qg.num_vertices, "cpu")
+    assert [len(c) for c in none] == [0] * qg.num_vertices
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            pe_candidates_device(data, q_pde, plan, qg.num_vertices, "cuda")

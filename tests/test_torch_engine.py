@@ -19,8 +19,12 @@ from gnnpe_tpu.engine import PGEEngine as RefPGEEngine
 from gnnpe_tpu.index.packed import PGEPackedIndex
 from gnnpe_tpu.io.datasets import powerlaw_graph, sample_query
 from gnnpe_tpu.parallel.mesh import make_mesh
+from gnnpe_tpu.index import device_packed as jax_dp
 from gnnpe_tpu_torch.engine import PEEngine, PGEEngine
 from gnnpe_tpu_torch.graph.csr import CSRGraph
+from gnnpe_tpu_torch.index import device_packed
+from gnnpe_tpu_torch.index.device_packed import (StreamedPESearch,
+                                                 TablePESearch)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -131,6 +135,84 @@ def test_attach_device_cuda_raises_without_cuda(pe_pair):
         PEEngine(PEConfig.from_cli(l=2, e=2), port.graph, "cuda")
 
 
+@pytest.mark.parametrize("spill", [False, True], ids=["ram", "disk"])
+def test_build_index_streamed(graphs, mesh, tmp_path, spill):
+    """``build_index(table=True, resident=False)``: the bucketed build
+    through the engine, against gnnpe_tpu's streamed index and the
+    port's resident one."""
+    g, queries = graphs
+    cfg = PEConfig.from_cli(l=2, e=2)
+    port = PEEngine(cfg, g, "cpu").offline()
+    paths = port.paths
+    port.build_index(block_size=64, table=True, resident=False,
+                     spill_dir=str(tmp_path / "spill") if spill else None,
+                     cache_bytes=300 * 64 * 12)
+    idx = port.searcher
+    assert type(idx) is StreamedPESearch and port.index is None
+    assert isinstance(idx._host_vids, np.memmap) == spill
+    assert port.build_timings["mode"] == "streamed"
+    assert port.paths is paths                  # enumeration order, kept
+    table = PEEngine(cfg, g, "cpu").offline(device=True).build_index(
+        block_size=64, table=True, resident=True)
+    assert type(table.searcher) is TablePESearch
+    assert table.build_timings is None
+    assert np.array_equal(idx._host_vids, table.searcher._host_vids)
+    ref = RefPEEngine(cfg, g)
+    ref.offline()
+    ref.build_index(packed=False)
+    ref.sharded = jax_dp.DevicePackedPESearch.build_from_paths(
+        mesh, ref.paths, ref.vertices, block_size=64, resident=False)
+    for union in ("host", "device"):
+        for qg in queries:
+            got = port.online(qg, union=union)
+            _assert_same_result(got, ref.online(qg, engine="native",
+                                                union=union))
+            _assert_same_result(got, table.online(qg, union=union))
+        many = port.online_many(queries, union=union)
+        for a, b in zip(many, ref.online_many(queries, engine="native",
+                                              union=union)):
+            _assert_same_result(a, b)
+    assert idx._cache.misses > 0 and idx._cache.hits > 0
+    port.attach_device("cpu")                   # already attached: no-op
+    assert port.searcher is idx
+    idx.close()
+    if spill:
+        assert list((tmp_path / "spill").iterdir()) == []
+
+
+def test_build_index_resident_switch(graphs, monkeypatch):
+    """``resident=None`` asks ``auto_resident``; ``True`` keeps the
+    ``MemoryError`` where the table does not fit."""
+    g, queries = graphs
+    cfg = PEConfig.from_cli(l=2, e=2)
+    eng = PEEngine(cfg, g, "cpu").offline()
+    p = len(eng.paths)
+    table_bytes = -(-p // 64) * 64 * 3 * 4
+    build = device_packed.table_build_bytes(p, 3, 64, False)
+    assert build > table_bytes / device_packed.RESIDENT_SHARE
+    monkeypatch.setattr(device_packed, "free_bytes", lambda d: build)
+    eng.build_index(block_size=64, table=True)
+    assert type(eng.searcher) is TablePESearch
+    want = eng.online(queries[0])
+    # Room for the table at its share, none for the build: streamed.
+    assert device_packed.auto_resident(p, 3, 64, "cpu", build - 1)
+    for free in (build - 1, table_bytes):
+        monkeypatch.setattr(device_packed, "free_bytes", lambda d: free)
+        eng.build_index(block_size=64, table=True)
+        assert type(eng.searcher) is StreamedPESearch
+        _assert_same_result(eng.online(queries[0]), want)
+    monkeypatch.setattr(device_packed, "free_bytes", lambda d: 1000)
+    with pytest.raises(MemoryError, match="resident=False"):
+        eng.build_index(block_size=64, table=True, resident=True)
+    # No path at all: the streamed index builds in one piece.
+    lonely = CSRGraph.from_edges(3, np.zeros((0, 2), np.int64),
+                                 np.zeros(3, np.int64))
+    empty = PEEngine(cfg, lonely, "cpu").offline().build_index(
+        table=True, resident=False)
+    assert type(empty.searcher) is StreamedPESearch
+    assert empty.searcher.num_blocks == 0
+
+
 _SLICE = """
 import sys
 import numpy as np
@@ -170,6 +252,45 @@ assert torch.equal(paths, pe.paths) and torch.equal(idx.d_vids,
 pipeline.offline_pipelined(g, order, 3, np.ones((g.labels_count, 2)), "cpu")
 pge = PGEEngine(PGEConfig.from_cli(l=2, e=2), g, "cpu").offline(device=True)
 assert pge.build_index(block_size=16).attach_device("cpu").online(q).answer_count
+# A streamed (bucketed) build with a disk spill, a search through the
+# block cache, save and load, the flat filter and the pre-verify.
+import os
+from gnnpe_tpu_torch.index import bucket_build, device_packed
+from gnnpe_tpu_torch.index.device_packed import StreamedPESearch
+from gnnpe_tpu_torch.match.device_filter import pe_candidates_device
+from gnnpe_tpu_torch.match.preverify import semijoin_prune
+spill = sys.argv[1] + ".spill"
+pe.build_index(block_size=16, table=True, resident=False, spill_dir=spill,
+               cache_bytes=50 * 16 * 12)
+assert isinstance(pe.searcher, StreamedPESearch)
+got = pe.online(q, union="device")
+assert got.answer_count == want.answer_count
+assert pe.searcher.last_stats["cache_misses"] > 0
+pe.searcher.prefill_cache()
+pe.searcher.save(sys.argv[1])
+again = device_packed.load(sys.argv[1], pe.vertices, "cpu", cache=False)
+assert isinstance(again, StreamedPESearch)
+pe.searcher.close()
+assert os.listdir(spill) == []
+pe.searcher = again
+assert pe.online(q).answer_count == want.answer_count
+_, streamed, _ = pipeline.offline_build_pipelined(
+    g, order, 3, pe.vertices, "cpu", block_size=16, resident=False)
+assert np.array_equal(streamed._host_vids, again._host_vids)
+pruned = semijoin_prune(g, q, got.candidates, "cpu", iters=2)
+assert sum(map(len, pruned)) <= sum(map(len, got.candidates))
+assert pe.online(q, preverify=2).timings_ms["preverify"] >= 0
+assert pge.online(q, preverify=2).answer_count == pge.online(q).answer_count
+from gnnpe_tpu_torch.embed.pde import gen_pde, gen_query_pde_table
+from gnnpe_tpu_torch.match.plan import greedy_path_cover
+from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
+qp, _ = enumerate_paths(q, np.arange(q.num_vertices), 3, dedup=True)
+q_pde, weight, _ = gen_query_pde_table(pe._vde(q), qp)
+flat = pe_candidates_device(gen_pde(pe.vertices, pe.paths.cpu().numpy()),
+                            q_pde, greedy_path_cover(qp, weight,
+                                                     q.num_vertices),
+                            q.num_vertices, "cpu")
+assert all(np.array_equal(a, b) for a, b in zip(flat, got.candidates))
 model = gnn.PathGNN(dim=2, labels_count=g.labels_count, device="cpu")
 paths = np.random.RandomState(0).randint(0, g.num_vertices, (64, 3))
 st = train.fit(model, g, paths, num_steps=3, batch_size=32,
