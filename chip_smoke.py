@@ -68,7 +68,40 @@
    leaves out the pad correction); the autograd backward of
    ``symmetric_aggregate`` and of A1's ``NeighborSum`` bit-equal to the
    forward of the cotangent.
-9. Train phase: ``train_payoff.run`` at the dblp rung (PGE, D=2, 300
+9. Multi-device phase (after phase 6, at the dblp rung and full width):
+   the multi-device layer on ``torch.distributed``.
+   *World size 1 on NCCL*, in this process: ``make_mesh(1)``, both
+   engines through ``attach_mesh(packed=True)`` and ``packed=False``,
+   both unions, held to the oracles of phases 4 and 6; ``HaloPlan`` and
+   ``BinnedHaloPlan`` aggregation (f32 D=128) against A1's square sum
+   (the halo backend bit-equal, the binned one at rtol 1e-4 / atol
+   1e-4); 5 train steps of each backend ("binned_halo", "halo", "psum")
+   whose losses must track the single device's (``fit``'s inner loop
+   over the binned aggregation, from ``fit``'s initial weights, on the
+   same batches of random path pairs: ``fit``'s own positives are
+   dominated by construction, so their hinge is ~0) within rtol 1e-3 /
+   atol 1e-5.
+   *Four ranks on the one card over gloo*, started by this script
+   (parallel/launch.py): NCCL takes one rank per device, so the ranks
+   share ``cuda:0``, compute there with the kernels, and their
+   collectives cross the host (parallel/collectives.py stages by the
+   group's backend).  Each rank loads its block range of the index that
+   phase 5 saved and answers the 8 queries under both unions, equal to
+   phase 4's oracle on every rank; the halo and binned-halo aggregation
+   over 4 shards (``partition_graph``) must equal the single-device sum
+   row for row (halo bit-equal, binned rtol 1e-4 / atol 1e-4); 3 steps
+   of each backend are timed.  A rank that fails fails the script.
+   Both kernels' new rectangular shapes (rank 0's shard of the 4-way
+   plans, f32 D=2 and D=128: A1 with ``own_pad + 4·halo_pad`` source rows
+   and ``own_pad`` output rows, A2 through ``RectBinned``'s launch plan)
+   are held bit-equal to their plain versions and timed as in phases 3
+   and 8.  The phase's A1 and A2 launches are counted path by path —
+   the counts set to 0 after every oracle and single-device comparison,
+   so that only the multi-device layer's own launches are read — and
+   each must be exactly what the path says it launches (``agg.launches``
+   of a plan's aggregation, ``step.launches`` of a train step; one A1 a
+   query for its VDE), at world size 1 and in every rank.
+10. Train phase: ``train_payoff.run`` at the dblp rung (PGE, D=2, 300
    steps, binned aggregation, 8 held-out queries).  A2 must launch
    ``launches_per_apply`` times in every step's forward and in its
    backward; every loss finite, the last below the first, and the first
@@ -89,7 +122,8 @@ every answer count must equal native refinement on
 those candidates; the table and device phases share the oracle of the
 phase before them.  Each kernel's launch count over the main path of
 the phases that run it (A1: PE, PE table, PE streamed, PGE, PGE device,
-both pre-verify runs and train; A2: train) must be > 0, and the index tensors must live on the card.
+both pre-verify runs, multi-device and train; A2: multi-device and
+train) must be > 0, and the index tensors must live on the card.
 At the end neither ``jax`` nor any module of ``gnnpe_tpu`` may have been
 imported.  Any failure exits non-zero.  The full record is printed as one
 ``record: {...}`` line; the second-to-last line is the kernels record,
@@ -121,6 +155,10 @@ STREAM_POOL_BLOCKS = 30_000
 TRAIN_STEPS = 300
 TRAIN_QUERIES = 8
 SEGMENT_STEPS = 50        # the binned run's first chunk of batches
+MULTI_RANKS = 4           # ranks that share the card over gloo
+MULTI_STEPS = 5           # train steps per backend at world size 1
+MULTI_TRAIN_PATHS = 200_000
+MULTI_RANK_TIMEOUT_S = 420
 # First and last loss of the 300-step binned fit from seed 0, as the
 # port's earlier revisions recorded them (4 digits): the kernels' sums
 # did not move, so neither may these.
@@ -571,9 +609,7 @@ def pe_table_phase(g, queries, device, record, oracle,
     loaded = dp.TablePESearch.load(fp, eng.vertices, device)
     load_s = time.perf_counter() - t0
     file_bytes = sum(os.path.getsize(f) for f in out.iterdir())
-    for f in out.iterdir():
-        f.unlink()
-    out.rmdir()
+    rec["index_file"] = fp       # the multi-device phase's ranks load it
     check(np.array_equal(loaded._host_vids, idx._host_vids)
           and all(torch.equal(getattr(loaded, k), getattr(idx, k))
                   for k in ("d_vids", "b_ub", "b_llo", "b_lhi", "b_deg")),
@@ -920,7 +956,7 @@ def pge_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> tuple:
     launches += _preverify_check("pge", eng, g, queries, runs, record,
                                  counts_must_hold=True)
     return launches, dict(group=eng.group, label_group=eng.label_group,
-                          wants=wants, counts=counts)
+                          wants=wants, counts=counts, engine=eng)
 
 
 def pge_device_phase(g, queries, device, record, oracle,
@@ -1045,6 +1081,463 @@ def ell_phase(g, device, record) -> dict:
           "bit-equal to the forward of the cotangent")
     record["ell"] = rows
     return rows
+
+
+# ---- the multi-device phase ------------------------------------------------
+
+def _plan_bytes(dev, d: int) -> int:
+    """Bytes one ``RectBinnedDevice.apply`` must move: every table and
+    padcnt read once and its rows written once, every level's input read
+    once (level 0 reads the layout's source rows)."""
+    moved = sum(4 * t.rows * t.width + 4 * t.rows * d
+                + (4 * t.rows if t.padcnt is not None else 0)
+                for lv in dev.plan.levels for t in lv.tables)
+    return moved + sum(
+        4 * (dev.num_src_rows if lv.src_row is None else lv.src_rows) * d
+        for lv in dev.plan.levels)
+
+
+def rect_kernel_rows(hplan, bplan, device, record) -> tuple:
+    """Both kernels at this slice's shapes — rank 0's shard of the 4-way
+    plans, f32 D=2 (the trainer's) and D=128: A1 summing ``own_pad +
+    n·halo_pad`` source rows into ``own_pad`` rows, A2 over the local and
+    the halo group's launch plans.  Each is held bit-equal to its plain
+    version and timed beside its library call; returns (A1 rows, A2
+    rows) for the kernels record."""
+    import torch
+    import torch.nn.functional as F
+    from gnnpe_tpu_torch.ops import ell, spmm
+    pair = hplan.local_pair(0, device)
+    n_ext = hplan.own_pad + hplan.num_shards * hplan.halo_pad
+    arcs = int(pair.neighbors.numel())
+    local = bplan.local_layouts[0].on(device)
+    halo = bplan.halo_layouts[0].on(device)
+    slots = bplan.local_layouts[0].num_slots + bplan.halo_layouts[0].num_slots
+    record["multi"]["rect_shapes"] = dict(
+        a1=dict(source_rows=n_ext, output_rows=hplan.own_pad, arcs=arcs),
+        a2=dict(local=dict(source_rows=local.num_src_rows,
+                           output_rows=local.num_out,
+                           launches=local.launches_per_apply),
+                halo=dict(source_rows=halo.num_src_rows,
+                          output_rows=halo.num_out,
+                          launches=halo.launches_per_apply), slots=slots))
+
+    def bag(buf, tbl, padcnt, out):
+        out.copy_(F.embedding_bag(tbl, buf, mode="sum"))
+
+    rng = np.random.RandomState(4)
+    a1_rows, a2_rows = {}, {}
+    for d in (2, 128):
+        name = f"rect_f32_d{d}"
+        x = torch.from_numpy(rng.rand(n_ext, d).astype(np.float32)).to(device)
+        got = spmm.neighbor_sum(pair.offsets, pair.neighbors, x,
+                                rectangular=True)
+        plain = spmm.neighbor_sum_plain(pair.offsets, pair.neighbors, x)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        check(got.shape == (hplan.own_pad, d) and torch.equal(got, plain),
+              f"spmm_csr {name} differs from its plain version (max abs "
+              f"err {err})")
+        adj = torch.sparse_csr_tensor(
+            pair.offsets, pair.neighbors,
+            torch.ones(arcs, dtype=x.dtype, device=device),
+            size=(hplan.own_pad, n_ext))
+        check(torch.allclose(torch.sparse.mm(adj, x), plain, rtol=1e-5),
+              f"torch.sparse.mm {name} differs from the plain version")
+        a1_rows[name] = dict(max_abs_err=err, **_measure(
+            lambda: spmm.neighbor_sum_plain(pair.offsets, pair.neighbors, x),
+            lambda: spmm.neighbor_sum(pair.offsets, pair.neighbors, x,
+                                      rectangular=True),
+            lambda: torch.sparse.mm(adj, x),
+            bytes_moved=4 * (hplan.own_pad + 1) + 4 * arcs
+            + 4 * d * (n_ext + hplan.own_pad),
+            operations=arcs * d, bytes_gathered=arcs * d * 4))
+        _print_turns(f"spmm_csr {name} ({n_ext} -> {hplan.own_pad} rows)",
+                     a1_rows[name])
+        del adj
+
+        xo = x[:local.num_src_rows].contiguous()
+        xh = torch.from_numpy(rng.rand(halo.num_src_rows, d).astype(
+            np.float32)).to(device)
+
+        def both(gather=None):
+            return local.apply(xo, gather=gather), halo.apply(xh,
+                                                              gather=gather)
+        got, plain = both(), both(ell.gather_sum_plain)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+        check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+              f"ell_gather_sum {name} differs from its plain version (max "
+              f"abs err {err})")
+        a2_rows[name] = dict(max_abs_err=err, **_measure(
+            lambda: both(ell.gather_sum_plain), both, lambda: both(bag),
+            bytes_moved=_plan_bytes(local, d) + _plan_bytes(halo, d),
+            operations=slots * d, bytes_gathered=slots * d * 4))
+        _print_turns(f"ell_gather_sum {name} (local + halo group, "
+                     f"{local.launches_per_apply + halo.launches_per_apply} "
+                     "launches)", a2_rows[name])
+    return a1_rows, a2_rows
+
+
+def _step_inputs(g, num_paths: int, seed=0, batch_size=1024):
+    """A model factory with ``fit``'s initial weights for ``seed``
+    (``models/train.py``), and MULTI_STEPS batches of random path pairs.
+    ``fit``'s own positives are dominated by construction under the
+    monotone model, so their hinge is ~0; random pairs give every step a
+    loss that moves."""
+    import torch
+    from gnnpe_tpu_torch.models.gnn import PathGNN
+    from gnnpe_tpu_torch.ops.mt19937 import label_feature_table
+
+    def model(device):
+        m = PathGNN(dim=2, num_layers=1, labels_count=g.labels_count,
+                    activation="softplus", device=device)
+        return m.init(torch.Generator().manual_seed(seed),
+                      label_table=label_feature_table(g.labels_count, 2))
+
+    batches = np.random.RandomState(seed + 1).randint(
+        0, num_paths, size=(MULTI_STEPS, batch_size, 2))
+    return model, batches.astype(np.int64)
+
+
+def _single_device_step(g, model, device):
+    """``fit``'s inner loop as a step function: ``dominance_loss`` over
+    the binned aggregation (kernel A2, forward and backward) and Adam at
+    ``fit``'s settings."""
+    import torch
+    from gnnpe_tpu_torch.models.gnn import dominance_loss
+    from gnnpe_tpu_torch.ops.ell import (BinnedEllDevice, binned_aggregate,
+                                         build_binned_ell)
+    aggregate = binned_aggregate(BinnedEllDevice.from_host(
+        build_binned_ell(g.offsets, g.neighbors), device))
+    opt = _adam(model)
+
+    def step(labels, paths, pairs):
+        opt.zero_grad(set_to_none=True)
+        loss = dominance_loss(model, labels, paths, pairs, aggregate)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def _adam(model):
+    import torch
+    return torch.optim.Adam(model.parameters(), lr=1e-2, betas=(0.9, 0.999),
+                            eps=1e-8)
+
+
+def _timed_steps(step, labels, paths_t, batches, device) -> tuple:
+    """(losses, ms per step) of ``step`` over ``batches``: the first
+    batch's step is the warm-up and is not timed, the rest are, the card
+    synchronised at both ends."""
+    import torch
+    losses = [float(step(labels, paths_t,
+                         torch.from_numpy(batches[0]).to(device)))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [float(step(labels, paths_t, torch.from_numpy(b).to(device)))
+               for b in batches[1:]]
+    torch.cuda.synchronize()
+    return losses, (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+
+
+def _launch_reader(spmm, ell, what: str, counts: dict):
+    """``read(path, a1, a2)``: the (A1, A2) launches since the last
+    reading must be exactly (a1, a2); they are kept in ``counts[path]``
+    and the counts go back to 0, so that the next path is read alone."""
+    def read(path, a1, a2):
+        got = (spmm.LAUNCHES, ell.LAUNCHES)
+        check(got == (a1, a2), f"{what}, {path}: launched {got} (A1, A2), "
+              f"the path says {(a1, a2)}")
+        counts[path] = list(got)
+        spmm.LAUNCHES = ell.LAUNCHES = 0
+    return read
+
+
+def multi_device_phase(g, queries, device, record, pe_oracle, pge_oracle,
+                       index_file) -> tuple:
+    """World size 1 on NCCL in this process, then MULTI_RANKS ranks on the
+    one card over gloo; returns the phase's (A1, A2) launches in this
+    process and the kernels' rows at the rectangular shapes."""
+    import os
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from gnnpe_tpu_torch.graph.csr import to_device
+    from gnnpe_tpu_torch.graph.partition import partition_graph
+    from gnnpe_tpu_torch.ops import ell, spmm
+    from gnnpe_tpu_torch.parallel.binned_halo import BinnedHaloPlan
+    from gnnpe_tpu_torch.parallel.dist import (make_distributed_train_step,
+                                               shard_edges)
+    from gnnpe_tpu_torch.parallel.halo import HaloPlan
+    from gnnpe_tpu_torch.parallel.launch import run_ranks
+    from gnnpe_tpu_torch.parallel.mesh import (make_mesh,
+                                               maybe_distributed_init)
+    rec = record["multi"] = {"world1_launches": {}}
+    t_phase = time.perf_counter()
+    read = _launch_reader(spmm, ell, "multi world 1", rec["world1_launches"])
+    with tempfile.TemporaryDirectory(prefix="gnnpe_smoke_pg_") as tmp:
+        maybe_distributed_init("cuda", init_method="file://"
+                               + os.path.join(tmp, "store"), rank=0,
+                               world_size=1)
+        mesh = make_mesh(1, axes=("graph",), shape=(1,), device="cuda")
+        group = mesh.get_group("graph")
+        one = torch.ones(4, device=device)
+        dist.all_reduce(one, group=group)
+        torch.cuda.synchronize()
+        check(dist.get_backend(group) == "nccl" and bool((one == 1).all()),
+              "multi: the world-size-1 group is not a working NCCL group")
+
+        # Both engines over the mesh, packed and flat, both unions.
+        t0 = time.perf_counter()
+        spmm.LAUNCHES = ell.LAUNCHES = 0
+        search_ms = {}
+        for variant, oracle in (("pe", pe_oracle), ("pge", pge_oracle)):
+            eng = oracle["engine"]
+            for packed in (True, False):
+                eng.attach_mesh(mesh, packed=packed)
+                for union in ("host", "device"):
+                    ms = []
+                    for i, q in enumerate(queries):
+                        r = eng.online(q, union=union)
+                        ms.append(r.timings_ms["search"])
+                        _check_query(
+                            f"multi world 1 {variant} packed={packed}", i,
+                            {union: [None] * i + [r]}, oracle["wants"][i],
+                            oracle["counts"][i])
+                    search_ms[f"{variant}_{'packed' if packed else 'flat'}_"
+                              f"{union}"] = _percentiles(ms)
+            eng.searcher = None
+        read("search (a query's VDE)", 2 * 2 * 2 * len(queries), 0)
+        rec["world1_search_ms"] = search_ms
+        rec["world1_search_s"] = time.perf_counter() - t0
+        print(f"multi world 1 (NCCL): PE and PGE through attach_mesh, packed "
+              f"and flat, both unions, {len(queries)} queries each equal the "
+              "oracles; search ms: " + json.dumps(search_ms))
+
+        # Aggregation over one shard against A1's square sum.
+        off, nbr, labels, _ = to_device(g, device)
+        x = np.random.RandomState(5).rand(g.num_vertices, 128).astype(
+            np.float32)
+        want = spmm.neighbor_sum(off, nbr, torch.from_numpy(x).to(device))
+        one_shard = np.zeros(g.num_vertices, np.int64)
+        for cls, exact in ((HaloPlan, True), (BinnedHaloPlan, False)):
+            plan = cls.build(g.offsets, g.neighbors, one_shard, 1)
+            agg = plan.make_aggregate(mesh, device)
+            spmm.LAUNCHES = ell.LAUNCHES = 0        # the oracle's launch
+            out = agg(torch.from_numpy(plan.shard_features(x)[0]).to(device))
+            read(f"{cls.__name__} aggregation", *agg.launches[0])
+            got = torch.from_numpy(plan.unshard_features(
+                out.cpu().numpy()[None])).to(device)
+            check(torch.equal(got, want) if exact else torch.allclose(
+                got, want, rtol=1e-4, atol=1e-4),
+                f"multi world 1: {cls.__name__} aggregation differs from "
+                f"neighbor_sum (max abs {float((got - want).abs().max())})")
+        print("multi world 1: HaloPlan aggregation bit-equal to A1's sum, "
+              "BinnedHaloPlan within rtol 1e-4 / atol 1e-4 (f32 D=128)")
+
+        # A few steps of each backend against the single device's.
+        paths = pe_oracle["paths"]
+        paths = np.ascontiguousarray(
+            paths[::max(1, len(paths) // MULTI_TRAIN_PATHS)]
+            [:MULTI_TRAIN_PATHS])
+        make_model, batches = _step_inputs(g, len(paths))
+        paths_t = torch.from_numpy(paths.astype(np.int64)).to(device)
+        labels = labels.long()
+        want_losses, single_ms = _timed_steps(
+            _single_device_step(g, make_model(device), device), labels,
+            paths_t, batches, device)
+        check(np.isfinite(want_losses).all() and min(want_losses) > 1e-3,
+              f"multi world 1: the single-device losses {want_losses} say "
+              "nothing")
+        steps = {}
+        for backend in ("binned_halo", "halo", "psum"):
+            model = make_model(device)
+            opt = _adam(model)
+            kw = (dict(arcs=shard_edges(*g.coo(), 1)) if backend == "psum"
+                  else dict(plan=(BinnedHaloPlan if backend == "binned_halo"
+                                  else HaloPlan).build(
+                      g.offsets, g.neighbors, one_shard, 1)))
+            step = make_distributed_train_step(
+                model, mesh, opt, g.num_vertices, backend=backend, **kw)
+            spmm.LAUNCHES = ell.LAUNCHES = 0    # the single device's steps
+            losses, ms = _timed_steps(step, labels, paths_t, batches, device)
+            read(f"{backend} steps", *(MULTI_STEPS * k for k in step.launches))
+            check(np.allclose(losses, want_losses, rtol=1e-3, atol=1e-5),
+                  f"multi world 1: {backend} losses {losses} leave the "
+                  f"single device's {want_losses}")
+            steps[backend] = dict(step_ms=ms, losses=losses)
+        rec["world1_steps"] = dict(single_device_losses=want_losses,
+                                   single_device_step_ms=single_ms, **steps)
+        print(f"multi world 1: {MULTI_STEPS} steps of binned_halo, halo and "
+              "psum track the single-device step's losses (fit's inner loop, "
+              "binned) within rtol 1e-3: " + json.dumps(rec["world1_steps"]))
+        dist.destroy_process_group()
+    launches = tuple(sum(c[k] for c in rec["world1_launches"].values())
+                     for k in (0, 1))
+    check(min(launches) > 0, f"multi world 1 launched {launches} kernels")
+    print("multi world 1: (A1, A2) launches, each path read alone and equal "
+          "to what it says it launches: " + json.dumps(rec["world1_launches"]))
+
+    # The 4-way plans: their sizes, and both kernels at rank 0's shapes.
+    t0 = time.perf_counter()
+    n = MULTI_RANKS
+    membership = partition_graph(g, n)
+    rec["partition_s"] = time.perf_counter() - t0
+    hplan = HaloPlan.build(g.offsets, g.neighbors, membership, n)
+    bplan = BinnedHaloPlan.build(g.offsets, g.neighbors, membership, n)
+    rec["plans"] = dict(
+        shard_vertices=[int(c) for c in bplan.counts], own_pad=bplan.own_pad,
+        halo_pad=bplan.halo_pad, halo_rows_sent=n * n * bplan.halo_pad,
+        psum_rows=n * g.num_vertices, local_arcs=bplan.num_local_arcs,
+        halo_arcs=bplan.num_halo_arcs, slots=bplan.num_slots)
+    print("multi: 4-way plans: " + json.dumps(rec["plans"]))
+    a1_rows, a2_rows = rect_kernel_rows(hplan, bplan, device, record)
+
+    # Four ranks on this card over gloo.
+    exchange = os.path.join(os.path.dirname(index_file), "exchange.pkl")
+    with open(exchange, "wb") as f:
+        pickle.dump(dict(index=index_file, membership=membership,
+                         wants=pe_oracle["wants"],
+                         counts=pe_oracle["counts"]), f)
+    t0 = time.perf_counter()
+    outs = run_ranks(n, "chip_smoke:multi_rank", dict(exchange=exchange),
+                     group_device="cpu", timeout_s=MULTI_RANK_TIMEOUT_S)
+    rec["ranks_s"] = time.perf_counter() - t0
+    ranks = []
+    for r, out in enumerate(outs):
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("rank_record: ")]
+        check(len(lines) == 1, f"multi: rank {r} printed no record:\n{out}")
+        ranks.append(json.loads(lines[0][len("rank_record: "):]))
+        for path in ("HaloPlan aggregation", "halo steps", "psum steps"):
+            check(ranks[-1]["launches"][path][0] > 0,
+                  f"multi: rank {r}, {path}: no A1 launch: {ranks[-1]}")
+        for path in ("BinnedHaloPlan aggregation", "binned_halo steps"):
+            check(min(ranks[-1]["launches"][path]) > 0,
+                  f"multi: rank {r}, {path}: a kernel did not launch: "
+                  f"{ranks[-1]}")
+    rec["ranks"] = ranks
+    for f in os.listdir(os.path.dirname(index_file)):
+        os.unlink(os.path.join(os.path.dirname(index_file), f))
+    os.rmdir(os.path.dirname(index_file))
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"multi: {n} ranks on one card over gloo in {rec['ranks_s']:.1f} s: "
+          "every rank's answers equal the PE oracle under both unions, halo "
+          "aggregation bit-equal and binned-halo within rtol 1e-4 / atol 1e-4 "
+          "of the single-device sum; rank 0: " + json.dumps(ranks[0]))
+    return launches, a1_rows, a2_rows
+
+
+def multi_rank(rank: int, world: int, exchange: str) -> None:
+    """One of the ranks that share the card (started by
+    ``multi_device_phase`` through parallel/launch.py over gloo)."""
+    import pickle
+
+    import torch
+    from gnnpe_tpu_torch.config import PEConfig
+    from gnnpe_tpu_torch.engine import PEEngine
+    from gnnpe_tpu_torch.graph.csr import to_device
+    from gnnpe_tpu_torch.index import device_packed as dp
+    from gnnpe_tpu_torch.io.datasets import load_dataset, sample_query
+    from gnnpe_tpu_torch.ops import ell, spmm
+    from gnnpe_tpu_torch.parallel.binned_halo import BinnedHaloPlan
+    from gnnpe_tpu_torch.parallel.dist import (make_distributed_train_step,
+                                               shard_edges)
+    from gnnpe_tpu_torch.parallel.halo import HaloPlan
+    from gnnpe_tpu_torch.parallel.mesh import make_mesh
+    check(torch.cuda.is_available(), "a rank found no CUDA device")
+    device = torch.device("cuda", 0)
+    with open(exchange, "rb") as f:
+        ex = pickle.load(f)
+    g = load_dataset("dblp", seed=0)
+    queries = [sample_query(g, QUERY_SIZE, seed=s) for s in QUERY_SEEDS]
+    mesh = make_mesh(world, axes=("graph",), shape=(world,), device="cpu")
+    out = dict(rank=rank, launches={})
+    read = _launch_reader(spmm, ell, f"multi rank {rank}", out["launches"])
+
+    # This rank's block range of the saved index, and the 8 queries.
+    eng = PEEngine(PEConfig.from_cli(l=2, e=2, n=MAX_ANSWERS), g, device)
+    eng.vertices = eng._vde(g)
+    t0 = time.perf_counter()
+    eng.searcher = dp.load(ex["index"], eng.vertices, device, mesh=mesh)
+    out["load_s"] = time.perf_counter() - t0
+    out["block_range"] = list(eng.searcher.block_range)
+    out["index_bytes"] = int(sum(
+        t.numel() * t.element_size()
+        for t in eng.searcher.resident_tensors().values()))
+    spmm.LAUNCHES = ell.LAUNCHES = 0            # the data graph's VDE
+    for union in ("host", "device"):
+        ms = []
+        for i, q in enumerate(queries):
+            r = eng.online(q, union=union)
+            ms.append(r.timings_ms["search"])
+            _check_query(f"multi rank {rank}", i, {union: [None] * i + [r]},
+                         ex["wants"][i], ex["counts"][i])
+        out[f"search_{union}_ms"] = _percentiles(ms)
+    eng.searcher = None
+    read("search (a query's VDE)", 2 * len(queries), 0)
+
+    # Halo and binned-halo aggregation over the shards, row for row
+    # against the single device's sum of the same x.
+    off, nbr, labels, _ = to_device(g, device)
+    x = np.random.RandomState(5).rand(g.num_vertices, 128).astype(np.float32)
+    want = spmm.neighbor_sum(off, nbr, torch.from_numpy(x).to(device))
+    plans = {}
+    for name, cls, exact in (("halo", HaloPlan, True),
+                             ("binned_halo", BinnedHaloPlan, False)):
+        plan = plans[name] = cls.build(g.offsets, g.neighbors,
+                                       ex["membership"], world)
+        agg = plan.make_aggregate(mesh, device)
+        own = torch.from_numpy(plan.shard_features(x)[rank]).to(device)
+        spmm.LAUNCHES = ell.LAUNCHES = 0            # the oracle's launch
+        got = agg(own)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            agg(own)
+        torch.cuda.synchronize()
+        out[f"{name}_aggregate_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+        read(f"{cls.__name__} aggregation", *(4 * k for k in agg.launches[0]))
+        vids = torch.from_numpy(plan.own_vertex_ids()[rank].astype(
+            np.int64)).to(device)
+        real = int(np.bincount(ex["membership"], minlength=world)[rank])
+        got, ref = got[:real], want[vids[:real]]
+        check(torch.equal(got, ref) if exact else torch.allclose(
+            got, ref, rtol=1e-4, atol=1e-4),
+            f"multi rank {rank}: {name} aggregation differs from the single "
+            f"device's (max abs {float((got - ref).abs().max())})")
+    out["own_rows"] = real
+
+    # Three steps of each backend, timed; losses equal on every rank.
+    paths = np.random.RandomState(6).randint(
+        0, g.num_vertices, (MULTI_TRAIN_PATHS, 3))
+    make_model, batches = _step_inputs(g, len(paths))
+    paths_t = torch.from_numpy(paths).to(device)
+    labels = labels.long()
+    out["step_ms"], losses = {}, {}
+    for backend in ("binned_halo", "halo", "psum"):
+        model = make_model(device)
+        opt = _adam(model)
+        kw = (dict(arcs=shard_edges(*g.coo(), world)) if backend == "psum"
+              else dict(plan=plans[backend]))
+        step = make_distributed_train_step(model, mesh, opt, g.num_vertices,
+                                           backend=backend, **kw)
+        losses[backend], out["step_ms"][backend] = _timed_steps(
+            step, labels, paths_t, batches[:4], device)
+        read(f"{backend} steps", *(4 * k for k in step.launches))
+    check(losses["binned_halo"][0] > 1e-3, f"multi rank {rank}: losses "
+          f"{losses['binned_halo']} are zero")
+    for backend in ("halo", "psum"):
+        check(np.allclose(losses[backend], losses["binned_halo"], rtol=1e-3,
+                          atol=1e-5),
+              f"multi rank {rank}: {backend} losses {losses[backend]} leave "
+              f"binned_halo's {losses['binned_halo']}")
+    out["losses"] = losses["binned_halo"]
+    print("rank_record: " + json.dumps(out))
 
 
 def _numpy_forward(model, g) -> np.ndarray:
@@ -1212,11 +1705,20 @@ def main() -> int:
     fresh()
     launches += pe_streamed_phase(g, queries, device, record, pe_oracle,
                                   table_eng)
-    del pe_oracle, table_eng
+    del table_eng
     fresh()
     a1, pge_oracle = pge_phase(g, queries, device, record)
     launches += a1
     peak("pge")
+    fresh()
+    (a1, a2_multi), a1_rect, a2_rect = multi_device_phase(
+        g, queries, device, record, pe_oracle, pge_oracle,
+        record["pe_table"]["index_file"])
+    launches += a1
+    rows.update(a1_rect)
+    ell_rows.update(a2_rect)
+    peak("multi")
+    del pe_oracle, pge_oracle["engine"]
     fresh()
     launches += pge_device_phase(g, queries, device, record, pge_oracle)
     peak("pge_device")
@@ -1236,7 +1738,7 @@ def main() -> int:
         _kernel_row("spmm_csr", "experiments/pallas_spmm.py:181", launches,
                     rows, "f64_d2"),
         _kernel_row("ell_gather_sum", "experiments/pallas_blocked_spmm.py:106",
-                    a2, ell_rows, "f32_d2")]}))
+                    a2 + a2_multi, ell_rows, "f32_d2")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -117,6 +117,12 @@ def path_groups(vertices: VertexEmbeddings, start: np.ndarray,
     return group, label_group
 
 
+def path_group_keys(group: np.ndarray) -> np.ndarray:
+    """Query-vertex search key: -Σ lower bounds of the path group
+    (GNN-PGE/src/main.cpp:325-329)."""
+    return -group[:, 0, :].sum(axis=1)
+
+
 def path_groups_device(vertices, graph, order, num_vertices_per_path: int,
                        pde_dim: int, device):
     """(group, label_group) f64[V, 2, pde_dim] as numpy, bit-equal to

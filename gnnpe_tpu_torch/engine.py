@@ -1,5 +1,5 @@
-"""End-to-end PE / PGE engines on one device (counterpart of
-gnnpe_tpu/engine.py with ``attach_mesh(packed=True)``).
+"""End-to-end PE / PGE engines on one device or over a mesh of ranks
+(counterpart of gnnpe_tpu/engine.py).
 
   offline      → paths (PE) / VDE + per-vertex path groups (PGE), on
                  the host, or with ``device=True`` on the engine's device
@@ -9,6 +9,10 @@ gnnpe_tpu/engine.py with ``attach_mesh(packed=True)``).
                  where ``resident`` says so, the streamed index on the
                  host (``StreamedPESearch``)
   attach_device → the host index uploaded (index/device_packed.py)
+  attach_mesh  → the same over a mesh axis: the packed index split by
+                 block range, or with ``packed=False`` the flat table
+                 split by rows (parallel/query.py); every rank holds its
+                 shard and ``online`` becomes a collective call
   online       → VDE + plan → device search → optional pre-verify on
                  the device → host refinement → count
 
@@ -16,7 +20,9 @@ VDE runs on the engine's device for the data graph and for every
 query.  Partitions only shard work and the candidate union does not
 depend on them, so the single-device engines do not partition.  Both
 variants' searches answer one protocol, ``search(query, union=)``; the
-variant supplies only its query table.
+variant supplies only its query table.  The engines serve from an
+attached index only: there is no search on the host, and the CPU is a
+device like any other, asked for by name (``PEEngine(cfg, g, "cpu")``).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -46,6 +52,7 @@ from gnnpe_tpu_torch.index.packed import PackedDominanceIndex, PGEPackedIndex
 from gnnpe_tpu_torch.match.plan import greedy_path_cover
 from gnnpe_tpu_torch.match.preverify import semijoin_prune
 from gnnpe_tpu_torch.match.refine import refinement
+from gnnpe_tpu_torch.parallel.query import ShardedPESearch, ShardedPGESearch
 from gnnpe_tpu_torch.paths.device_enumerate import enumerate_dedup_device
 from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
 from gnnpe_tpu_torch.utils.device import as_device
@@ -61,6 +68,7 @@ class MatchResult:
     answer_count: int
     candidates: List[np.ndarray]
     timings_ms: dict
+    embeddings: Optional[np.ndarray] = None
 
 
 class _Engine:
@@ -70,15 +78,21 @@ class _Engine:
     search_cls = None
 
     def __init__(self, config, data_graph: CSRGraph, device,
-                 embedder=None):
+                 embedder=None, membership: Optional[np.ndarray] = None):
         """device: where VDE and the search run.  embedder:
         callable(graph) -> VertexEmbeddings for the data graph and every
         query, in place of the fixed label-seeded VDE (a trained
-        non-negative PathGNN, models/embedder.py, keeps answers exact)."""
+        non-negative PathGNN, models/embedder.py, keeps answers exact).
+        membership: int[V] partition of the data graph's vertices, kept
+        for the callers that shard work by it (the halo plans of
+        parallel/; PE's ``partition_rows``); the candidate union does not
+        depend on it, so None computes none."""
         self.config = config
         self.graph = data_graph
         self.device = as_device(device)
         self.embedder = embedder
+        self.membership = (None if membership is None
+                           else np.asarray(membership))
         self.vertices = None
         self.index = None
         self.searcher = None
@@ -113,11 +127,37 @@ class _Engine:
                 self.index, self.device, base_epsilon=self.config.epsilon)
         return self
 
+    def attach_mesh(self, mesh, axis: str = "graph", packed: bool = False):
+        """Shard the search over ``mesh``'s ``axis`` (gnnpe_tpu's
+        ``attach_mesh``): ``packed=True`` splits the packed index by
+        block range — the host index of ``build_index()``, or the table
+        or streamed index ``build_index(table=True)`` left attached;
+        ``packed=False`` splits the flat entry table by rows
+        (parallel/query.py).  Every rank of the axis calls it, on an
+        engine built with the same arguments; ``online`` and
+        ``online_many`` are collective from then on and return the same
+        answer on every rank."""
+        if packed and self.index is None and self.searcher is not None:
+            self.searcher.shard(mesh, axis)
+        elif packed:
+            if self.index is None:
+                raise RuntimeError("call build_index() before "
+                                   "attach_mesh(packed=True)")
+            self.searcher = self.search_cls(
+                self.index, self.device,
+                base_epsilon=self.config.epsilon).shard(mesh, axis)
+        else:
+            self.searcher = self._flat_search(mesh, axis)
+        return self
+
     def online(self, query_graph: CSRGraph, engine: str = "native",
-               union: str = "host", preverify: int = 0) -> MatchResult:
+               return_embeddings: bool = False, union: str = "host",
+               preverify: int = 0) -> MatchResult:
         """preverify: rounds of semi-join pruning of the candidates on
         the device before refinement (match/preverify.py), 0 = off.  PGE
-        counts do not move with it; PE counts can, by design."""
+        counts do not move with it; PE counts can, by design.
+        return_embeddings: also the matches themselves, int32[N, |Vq|]
+        indexed by query vertex id, in ``MatchResult.embeddings``."""
         if self.searcher is None:
             raise RuntimeError("call attach_device() before online()")
         t = StageTimer(self.device)
@@ -129,10 +169,12 @@ class _Engine:
             with t.stage("preverify"):
                 cands = self._prune(query_graph, cands, preverify)
         with t.stage("refine"):
-            count = refinement(self.graph, query_graph, cands,
-                               self.config.max_answers, engine=engine)
+            res = refinement(self.graph, query_graph, cands,
+                             self.config.max_answers, engine=engine,
+                             return_embeddings=return_embeddings)
+        count, emb = res if return_embeddings else (res, None)
         return MatchResult(answer_count=int(count), candidates=cands,
-                           timings_ms=t.times_ms)
+                           timings_ms=t.times_ms, embeddings=emb)
 
     def online_many(self, query_graphs, engine: str = "native",
                     union: str = "host",
@@ -192,9 +234,11 @@ class PEEngine(_Engine):
     search_cls = DevicePackedPESearch
 
     def __init__(self, config: PEConfig, data_graph: CSRGraph, device,
-                 embedder=None):
-        super().__init__(config, data_graph, device, embedder)
+                 embedder=None, membership: Optional[np.ndarray] = None):
+        super().__init__(config, data_graph, device, embedder, membership)
         self.paths = None
+        self.partition_rows = None
+        self.data_pde = None
         self.build_timings = None
 
     def offline(self, device: bool = False):
@@ -207,19 +251,22 @@ class PEEngine(_Engine):
         if device:
             self.paths = enumerate_dedup_device(
                 self.graph, order, self.config.path_length, self.device)
+            self.partition_rows = None
         else:
-            self.paths, _ = enumerate_paths(self.graph, order,
-                                            self.config.path_length,
-                                            dedup=True)
+            self.paths, self.partition_rows = enumerate_paths(
+                self.graph, order, self.config.path_length, dedup=True,
+                membership=self.membership)
         return self
 
     def build_index(self, block_size: int = 512, table: bool = False,
                     resident=None, spill_dir=None, cache_bytes=None,
-                    cache: bool = True):
+                    cache: bool = True, packed: bool = True):
         """VDE on the device, then either PDE and the host packed index
         (attach_device uploads it), or with ``table=True`` the
         table-mode index from the paths and the VDE, ready for
-        ``online``.
+        ``online``.  ``packed=False`` stops at the PDE table
+        (``data_pde``), which ``attach_mesh(packed=False)`` shards flat;
+        the packed build keeps ``data_pde`` too.
 
         resident (table mode): True builds ``TablePESearch`` on the
         device and raises ``MemoryError`` where it does not fit; False
@@ -232,11 +279,13 @@ class PEEngine(_Engine):
         the streamed search's."""
         self.vertices = self._vde(self.graph)
         self.build_timings = None
+        self.data_pde = None
         if not table:
             self.searcher = None        # until attach_device uploads
             paths = torch.as_tensor(self.paths).cpu().numpy()
-            self.index = PackedDominanceIndex.build(
-                gen_pde(self.vertices, paths), block_size=block_size)
+            self.data_pde = gen_pde(self.vertices, paths)
+            self.index = (PackedDominanceIndex.build(
+                self.data_pde, block_size=block_size) if packed else None)
             return self
         self.index = None
         p, l = self.paths.shape
@@ -259,6 +308,13 @@ class PEEngine(_Engine):
             spill_dir=spill_dir, base_epsilon=self.config.epsilon,
             cache_bytes=cache_bytes, cache=cache)
         return self
+
+    def _flat_search(self, mesh, axis: str):
+        if self.data_pde is None:
+            raise RuntimeError("attach_mesh(packed=False) needs the PDE "
+                               "table: call build_index() without table=True")
+        return ShardedPESearch(mesh, self.data_pde, self.device, axis=axis,
+                               base_epsilon=self.config.epsilon)
 
     def _query_table(self, qg: CSRGraph):
         qv = self._vde(qg)
@@ -289,8 +345,8 @@ class PGEEngine(_Engine):
     search_cls = DevicePackedPGESearch
 
     def __init__(self, config: PGEConfig, data_graph: CSRGraph, device,
-                 embedder=None):
-        super().__init__(config, data_graph, device, embedder)
+                 embedder=None, membership: Optional[np.ndarray] = None):
+        super().__init__(config, data_graph, device, embedder, membership)
         self.group = None
         self.label_group = None
 
@@ -318,6 +374,14 @@ class PGEEngine(_Engine):
             self.vertices.labels, self.vertices.degrees, self.group,
             self.label_group, block_size=block_size)
         return self
+
+    def _flat_search(self, mesh, axis: str):
+        if self.group is None:
+            raise RuntimeError("call offline() before attach_mesh()")
+        return ShardedPGESearch(mesh, self.vertices.labels,
+                                self.vertices.degrees, self.group,
+                                self.label_group, self.device, axis=axis,
+                                base_epsilon=self.config.epsilon)
 
     def _query_table(self, qg: CSRGraph) -> PGEQuery:
         qv = self._vde(qg)

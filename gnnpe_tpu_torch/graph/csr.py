@@ -18,7 +18,7 @@ Semantics preserved from the reference loader:
 
 # The port's own copy of gnnpe_tpu/graph/csr.py (numpy only; the two
 # packages share no code, so the tests can hold one against the other).
-# Without ``device_arrays`` (JAX), ``k_core``, ``meta`` and the networkx
+# Without ``device_arrays`` (JAX), ``meta`` and the networkx
 # loader; ``to_device`` below is the port's.
 
 from __future__ import annotations
@@ -159,6 +159,29 @@ class CSRGraph:
         ln, lo = self.label_adjacency()
         base = self.offsets[v]
         return ln[base + lo[v, label]: base + lo[v, label + 1]]
+
+    def k_core(self) -> np.ndarray:
+        """Core number per vertex (ref GraphOperations::getKCore,
+        libsrc/utility/graphoperations.cpp:5-72), via iterative peeling."""
+        deg = self.degrees.astype(np.int64).copy()
+        core = np.zeros(self.num_vertices, dtype=np.int32)
+        alive = np.ones(self.num_vertices, dtype=bool)
+        k = 0
+        while alive.any():
+            k_candidates = deg[alive]
+            k = max(k, int(k_candidates.min()))
+            while True:
+                peel = alive & (deg <= k)
+                if not peel.any():
+                    break
+                core[peel] = k
+                alive &= ~peel
+                # decrement degrees of neighbors of peeled vertices
+                peeled = np.nonzero(peel)[0]
+                for v in peeled:
+                    nbrs = self.vertex_neighbors(v)
+                    deg[nbrs] -= 1
+        return core
 
     # ------------------------------------------------------------------
     # Constructors

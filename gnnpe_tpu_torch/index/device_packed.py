@@ -78,6 +78,12 @@ from gnnpe_tpu_torch.match.device_filter import (extract_candidates,
                                                  pe_mask_exact,
                                                  pge_mask_exact)
 from gnnpe_tpu_torch.match.filter import eps_threshold
+from gnnpe_tpu_torch.parallel.collectives import (barrier, dist_rank,
+                                                  gather_objects,
+                                                  or_bitmaps_,
+                                                  union_candidates)
+from gnnpe_tpu_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
+                                           shard_bounds)
 from gnnpe_tpu_torch.utils.device import as_device, free_bytes
 from gnnpe_tpu_torch.utils.timers import StageTimer
 
@@ -608,16 +614,81 @@ class _PackedSearch:
         """The blocks one phase-2 chunk may hold, at most ``k``."""
         return k
 
+    # ---- sharding over a mesh axis -------------------------------------
+    # Per-entry device tensors, per-block device tensors or host arrays,
+    # and per-entry host arrays: what ``shard`` cuts to the rank's blocks.
+    _ROW_FIELDS: tuple = ()
+    _BLOCK_FIELDS: tuple = ()
+    _HOST_ROW_FIELDS: tuple = ()
+    group = None            # the axis's process group once sharded
+    block_range = None      # (lo, hi) of the index's blocks held here
+
+    def shard(self, mesh, axis: str = "graph"):
+        """Keep this rank's contiguous range of the blocks and drop the
+        rest (gnnpe_tpu splits the blocks over the mesh axis the same
+        way); ``search`` then runs the two phases over the rank's blocks
+        and unites the ranks' answers with one collective, so it must be
+        called on every rank of the axis with the same query.  Ranges are
+        uneven where the ranks do not divide the blocks, and a rank may
+        hold none.  Returns self."""
+        if self.block_range is not None:
+            raise RuntimeError("this index is sharded already")
+        n, r = axis_size(mesh, axis), axis_rank(mesh, axis)
+        lo, hi = shard_bounds(self.num_blocks, n, r)
+        self._narrow(lo, hi)
+        self.group = axis_group(mesh, axis)
+        return self
+
+    def _narrow(self, lo: int, hi: int) -> None:
+        b = self.block_size
+        for name in self._ROW_FIELDS:
+            if getattr(self, name, None) is not None:
+                setattr(self, name, getattr(self, name)[lo * b:hi * b].clone())
+        for name in self._BLOCK_FIELDS:
+            t = getattr(self, name)
+            setattr(self, name, t[lo:hi].clone() if isinstance(
+                t, torch.Tensor) else t[lo:hi])
+        for name in self._HOST_ROW_FIELDS:
+            setattr(self, name, getattr(self, name)[lo * b:hi * b])
+        self.block_range = (lo, hi)
+        self.num_blocks = hi - lo
+
     def search(self, query, union: str = "host") -> List[np.ndarray]:
-        """Sorted candidate vertex ids per query vertex."""
+        """Sorted candidate vertex ids per query vertex.  On a sharded
+        index this is a collective call that returns the same lists on
+        every rank: the local part over the rank's blocks, one
+        collective (the bitmaps' OR, or the gathered candidate lists'
+        union), and the same finish."""
         if union not in ("host", "device"):
             raise ValueError(f"union must be 'host' or 'device', "
                              f"got {union!r}")
         q = self._prepare(query)
-        empty = [np.zeros(0, dtype=np.int64) for _ in range(q.num_out)]
         self.last_stats = None
-        if q.rows == 0 or self.num_blocks == 0:
-            return empty
+        if q.rows == 0 or q.num_out == 0:       # the same on every rank
+            return [np.zeros(0, dtype=np.int64) for _ in range(q.num_out)]
+        local = self._search_local(q, union)
+        if union == "device":
+            if local is None and self.group is not None:
+                local = torch.zeros((q.num_out, self.num_vertices),
+                                    dtype=torch.bool, device=self.device)
+            if local is None:
+                return [np.zeros(0, dtype=np.int64)
+                        for _ in range(q.num_out)]
+            or_bitmaps_(local, self.group)
+            return [np.nonzero(r)[0].astype(np.int64)
+                    for r in local.cpu().numpy()]
+        cands = ([np.zeros(0, dtype=np.int64) for _ in range(q.num_out)]
+                 if local is None else self._extract(q, *local))
+        return union_candidates(cands, self.group)
+
+    def _search_local(self, q, union: str):
+        """Phase 1, the range prune and phase 2 over the blocks held
+        here: the bool bitmap [nq, V] on the device (union "device"),
+        the host hits (mask bool[Q, H], rows int64[H]) for ``_extract``
+        (union "host"), or None where no block survives.  No collective
+        in here: the chunk loop's length differs from rank to rank."""
+        if self.num_blocks == 0:
+            return None
         nb, b = self.num_blocks, self.block_size
         step = max(1, CHUNK_ELEMS // (q.rows * self.width))
         bmask = torch.cat([self._phase1(q, lo, min(lo + step, nb))
@@ -630,7 +701,7 @@ class _PackedSearch:
         self.last_stats = dict(blocks=nb, phase1=phase1, survived=n_sel,
                                chunks=-(-n_sel // k))
         if n_sel == 0:
-            return empty
+            return None
         offs = torch.arange(b, device=self.device)
         if union == "device":
             bitmap = torch.zeros((q.num_out, self.num_vertices),
@@ -650,10 +721,8 @@ class _PackedSearch:
                 masks.append(m[:, hit].cpu().numpy())
                 hit_rows.append(rows[hit].cpu().numpy())
         if union == "device":
-            return [np.nonzero(r)[0].astype(np.int64)
-                    for r in bitmap.cpu().numpy()]
-        return self._extract(q, np.concatenate(masks, axis=1),
-                             np.concatenate(hit_rows))
+            return bitmap
+        return np.concatenate(masks, axis=1), np.concatenate(hit_rows)
 
 
 class _PESearch(_PackedSearch):
@@ -704,6 +773,10 @@ class DevicePackedPESearch(_PESearch):
     from a ``PackedDominanceIndex``: labels, degrees and vids int32[P,
     L] and pde f64[P, L·D] per entry, and f64 block summaries."""
 
+    _ROW_FIELDS = ("d_labels", "d_degrees", "d_vids", "d_pde")
+    _BLOCK_FIELDS = ("b_ub", "b_llo", "b_lhi", "b_deg")
+    _HOST_ROW_FIELDS = ("_host_vids",)
+
     def __init__(self, index, device, base_epsilon: float = EPSILON):
         self.device = as_device(device)
         self.base_epsilon = base_epsilon
@@ -738,6 +811,10 @@ class _TableLayout(_PESearch):
     ``_chunk_vids``."""
 
     streamed = False
+    _ROW_FIELDS = ("d_vids",)
+    _BLOCK_FIELDS = ("b_ub", "b_llo", "b_lhi", "b_deg", "_blk_sig_first",
+                     "_blk_sig_last")
+    _HOST_ROW_FIELDS = ("_host_vids",)
 
     def _init_layout(self, vertices, tables, host_vids, summaries,
                      sig_first, sig_last, sig_radix, num_entries,
@@ -768,31 +845,57 @@ class _TableLayout(_PESearch):
         ``SIDECAR_BYTES``, and any table that is an ``np.memmap``, goes
         raw to ``<path>.vids.bin`` in bounded pieces.  The per-vertex
         tables are not stored: ``load`` rebuilds them from the
-        embeddings."""
+        embeddings.
+
+        On a sharded index this is a collective call over a file system
+        the ranks share: the table always goes to the sidecar, each rank
+        writing its own block range at its offset, and rank 0 writes the
+        npz with every rank's summaries.  The
+        port's shards carry no pad blocks, so the file is the one a
+        single device would write, whatever the mesh's width."""
         hv = self._host_vids
-        big = isinstance(hv, np.memmap) or hv.nbytes > SIDECAR_BYTES
+        l = hv.shape[1]
+        sharded = self.group is not None
+        big = (sharded or isinstance(hv, np.memmap)
+               or hv.nbytes > SIDECAR_BYTES)
+        # Per-block arrays and block counts of every rank, in rank order.
+        blocks = gather_objects(
+            [self.b_ub.cpu().numpy(), self.b_llo.cpu().numpy(),
+             self.b_lhi.cpu().numpy(), self.b_deg.cpu().numpy(),
+             np.asarray(self._blk_sig_first), np.asarray(self._blk_sig_last)],
+            self.group)
+        first = self.block_range[0] if sharded else 0
+        writer = dist_rank(self.group) == 0
+        total = sum(len(part[0]) for part in blocks)
         if big:
-            step = max(1, (1 << 26) // hv.shape[1])
-            with open(path + ".vids.bin", "wb") as f:
+            if writer:
+                with open(path + ".vids.bin", "wb") as f:
+                    f.truncate(total * self.block_size * l * 4)
+            barrier(self.group)
+            step = max(1, (1 << 26) // l)
+            with open(path + ".vids.bin", "r+b") as f:
+                f.seek(first * self.block_size * l * 4)
                 for lo in range(0, len(hv), step):
                     f.write(np.ascontiguousarray(hv[lo:lo + step]).tobytes())
-        np.savez(path,
-                 blk_ub=self.b_ub.cpu().numpy(),
-                 blk_llo=self.b_llo.cpu().numpy(),
-                 blk_lhi=self.b_lhi.cpu().numpy(),
-                 blk_deg=self.b_deg.cpu().numpy(),
-                 blk_sig_first=self._blk_sig_first,
-                 blk_sig_last=self._blk_sig_last,
-                 meta=np.array([self.num_entries, self.block_size,
-                                self.num_blocks, self.num_blocks,
-                                int(self.streamed), self._sig_radix,
-                                int(big), hv.shape[1]], np.int64),
-                 host_vids=(np.zeros((0, hv.shape[1]), np.int32) if big
-                            else np.asarray(hv)))
+            barrier(self.group)
+        if writer:
+            cat = [np.concatenate([part[i] for part in blocks])
+                   for i in range(6)]
+            np.savez(path, blk_ub=cat[0], blk_llo=cat[1], blk_lhi=cat[2],
+                     blk_deg=cat[3], blk_sig_first=cat[4],
+                     blk_sig_last=cat[5],
+                     meta=np.array([self.num_entries, self.block_size, total,
+                                    max(len(part[0]) for part in blocks),
+                                    int(self.streamed), self._sig_radix,
+                                    int(big), l], np.int64),
+                     host_vids=(np.zeros((0, l), np.int32) if big
+                                else np.asarray(hv)))
+        barrier(self.group)         # the file is whole when save returns
 
     @staticmethod
     def load(path: str, vertices, device, base_epsilon: float = EPSILON,
-             cache_bytes: Optional[float] = None, cache: bool = True):
+             cache_bytes: Optional[float] = None, cache: bool = True,
+             mesh=None, axis: str = "graph"):
         """The index from a file ``save`` wrote, here or in gnnpe_tpu
         (with any number of shards: its pad blocks carry the signature
         range 2^62 and never survive), as the class the file names: a
@@ -800,7 +903,13 @@ class _TableLayout(_PESearch):
         not fit, or for a streamed file a ``StreamedPESearch`` (with
         ``cache_bytes`` and ``cache``) over an ``np.memmap`` of the
         sidecar, or over the table in the file.  ``vertices`` are the
-        embeddings the index was built from."""
+        embeddings the index was built from.
+
+        With ``mesh`` every rank of ``axis`` reads its own block range
+        of the file (of the sidecar's rows, where there is one) and
+        holds nothing else.  gnnpe_tpu insists on the mesh width a file
+        was saved with because its shards are padded to one size; the
+        port's are not, so a file loads at any width."""
         device = as_device(device)
         with np.load(path) as z:
             meta = [int(x) for x in z["meta"]]
@@ -818,6 +927,14 @@ class _TableLayout(_PESearch):
         if len(hv) != nb * b:
             raise ValueError(f"{path}: {len(hv)} vid rows for {nb} blocks "
                              f"of {b}")
+        block_range = None
+        if mesh is not None:
+            lo, hi = block_range = shard_bounds(
+                nb, axis_size(mesh, axis), axis_rank(mesh, axis))
+            hv = hv[lo * b:hi * b]
+            for k in ("blk_ub", "blk_llo", "blk_lhi", "blk_deg",
+                      "blk_sig_first", "blk_sig_last"):
+                arrays[k] = arrays[k][lo:hi]
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
         if not streamed:
             _check_fits(hv.nbytes, device, f"loading {path}")
@@ -827,9 +944,14 @@ class _TableLayout(_PESearch):
                   arrays["blk_sig_first"], arrays["blk_sig_last"], sig_radix,
                   p, b, base_epsilon)
         if streamed:
-            return StreamedPESearch(vertices, tables, hv, *layout,
+            self = StreamedPESearch(vertices, tables, hv, *layout,
                                     cache_bytes=cache_bytes, cache=cache)
-        return TablePESearch(vertices, tables, put(hv), hv, *layout)
+        else:
+            self = TablePESearch(vertices, tables, put(hv), hv, *layout)
+        if mesh is not None:
+            self.block_range = block_range
+            self.group = axis_group(mesh, axis)
+        return self
 
     def _prune(self, q, bmask: torch.Tensor) -> torch.Tensor:
         """A row's exact-label matches lie in the blocks whose signature
@@ -879,7 +1001,9 @@ class TablePESearch(_TableLayout):
         sorted table comes back for the host union and ``save``.  Stage
         times (ms, the device synchronised at each edge) land in
         ``build_phase_ms``.  Raises ``MemoryError`` when the build does
-        not fit ``device``."""
+        not fit ``device``.  (Over a mesh every rank builds the whole
+        index — the sort is global — and ``shard`` keeps its block
+        range.)"""
         device = as_device(device)
         if block_size < 1:
             raise ValueError(f"block_size must be positive: {block_size}")
@@ -977,7 +1101,8 @@ class StreamedPESearch(_TableLayout):
         host; only the summaries and the per-vertex tables go to
         ``device``.  The vid table, the summaries and the ranges equal
         ``TablePESearch.build_from_paths``'s.  Stage times (ms) land in
-        ``build_phase_ms``."""
+        ``build_phase_ms``.  (After ``shard`` the rank's host table, its
+        cache pool and its uploads cover its block range only.)"""
         device = as_device(device)
         if block_size < 1:
             raise ValueError(f"block_size must be positive: {block_size}")
@@ -1104,6 +1229,12 @@ class StreamedPESearch(_TableLayout):
                                        cache_misses=cache.misses - before[1])
         return out
 
+    def _narrow(self, lo: int, hi: int) -> None:
+        # A pool made before the cut maps the whole index's block ids to
+        # its slots; the next search makes one over the rank's range.
+        super()._narrow(lo, hi)
+        self._cache = None
+
     def _chunk_limit(self, k: int) -> int:
         return min(k, self._cache.capacity) if self._cache else k
 
@@ -1128,6 +1259,12 @@ class DevicePackedPGESearch(_PackedSearch):
     """PGE packed vertex index (``PGEPackedIndex``) resident on
     ``device``: per-vertex labels, degrees, group upper bounds and
     label-group boxes, the entry→vertex order, and block summaries."""
+
+    _ROW_FIELDS = ("d_labels", "d_degrees", "d_ghi", "d_llo", "d_lhi",
+                   "d_order")
+    _BLOCK_FIELDS = ("b_gub", "b_llo", "b_lhi", "b_deg", "_blk_lab_first",
+                     "_blk_lab_last")
+    _HOST_ROW_FIELDS = ("_order",)
 
     def __init__(self, index, device, base_epsilon: float = EPSILON):
         self.device = as_device(device)
@@ -1157,7 +1294,16 @@ class DevicePackedPGESearch(_PackedSearch):
         self.num_vertices = int(index.order.max(initial=0)) + 1
         self.last_stats = None
 
+    def close(self) -> None:
+        """Release the device tensors (gnnpe_tpu's ``close``).  A closed
+        index raises on ``search``."""
+        for name in self._ROW_FIELDS + self._BLOCK_FIELDS[:4]:
+            setattr(self, name, None)
+        self.num_blocks = None
+
     def _prepare(self, query: PGEQuery):
+        if self.num_blocks is None:
+            raise RuntimeError("this DevicePackedPGESearch was closed")
         return SimpleNamespace(
             rows=len(query.labels), num_out=len(query.labels),
             host_labels=np.asarray(query.labels, dtype=np.int64),

@@ -94,6 +94,22 @@ def _cap_degrees(pairs: np.ndarray, num_vertices: int,
     return pairs
 
 
+def er_graph(num_vertices: int, num_edges: int, num_labels: int,
+             seed: int = 0) -> CSRGraph:
+    """Labeled Erdős–Rényi G(n, m) graph (uniform labels)."""
+    rng = np.random.RandomState(seed)
+    m = int(num_edges * 1.2) + 16
+    u = rng.randint(0, num_vertices, m).astype(np.int64)
+    v = rng.randint(0, num_vertices, m).astype(np.int64)
+    keep = u != v
+    lo = np.minimum(u[keep], v[keep])
+    hi = np.maximum(u[keep], v[keep])
+    pairs = np.unique(lo * num_vertices + hi)[:num_edges]
+    edges = np.stack([pairs // num_vertices, pairs % num_vertices], 1)
+    labels = rng.randint(0, num_labels, num_vertices).astype(np.int32)
+    return CSRGraph.from_edges(num_vertices, edges, labels)
+
+
 def sample_query(data_graph: CSRGraph, num_vertices: int,
                  tree: bool = True, seed: int = 0) -> CSRGraph:
     """Connected query sampled by random walk on the data graph —

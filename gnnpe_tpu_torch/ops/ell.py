@@ -32,7 +32,8 @@ from gnnpe_tpu_torch.utils.device import as_device
 
 __all__ = ["BinnedEll", "BinnedEllDevice", "DEFAULT_WIDTHS", "HUB_PRICES",
            "LAUNCHES", "LaunchPlan", "binned_aggregate", "build_binned_ell",
-           "gather_sum", "gather_sum_plain", "symmetric_aggregate"]
+           "gather_sum", "gather_sum_plain", "hub_product",
+           "symmetric_aggregate", "upload_table"]
 
 LAUNCHES = 0
 
@@ -414,15 +415,21 @@ class LaunchPlan:
     intermediate levels.  Level 0 is every width class (rows in order
     after the head's) and the head's first table; level i > 0 is the
     head's i-th table, reading level i-1's rows.  The last head table
-    writes the output's first ``num_head`` rows."""
+    writes the output's first ``num_head`` rows.
+
+    The rows gathered from (``h_perm``) need not be as many as the
+    output's: the rectangular layout (ops/rect.py) reads a source buffer
+    of its own row count and ends its output in ``num_zero`` rows that no
+    table writes, which are set to zero."""
     levels: List[PlanLevel]
     num_vertices: int
     work_rows: int
+    num_zero: int = 0
     _descriptors: Dict[int, list] = field(default_factory=dict, repr=False)
 
     @classmethod
-    def build(cls, head, classes, num_head: int,
-              num_vertices: int) -> "LaunchPlan":
+    def build(cls, head, classes, num_head: int, num_vertices: int,
+              num_zero: int = 0) -> "LaunchPlan":
         first, lo = [], num_head
         for tbl, pc in classes:
             first.append(PlanTable(tbl, pc, lo))
@@ -440,7 +447,14 @@ class LaunchPlan:
         if not head and first:
             levels.append(PlanLevel(tuple(first), None, num_vertices))
         return cls(levels=levels, num_vertices=num_vertices,
-                   work_rows=work_rows)
+                   work_rows=work_rows, num_zero=num_zero)
+
+    def _work(self, h_perm: torch.Tensor) -> torch.Tensor:
+        work = torch.empty((self.work_rows, h_perm.shape[1]),
+                           dtype=h_perm.dtype, device=h_perm.device)
+        if self.num_zero:
+            work[self.num_vertices - self.num_zero:self.num_vertices] = 0
+        return work
 
     @property
     def launches_per_apply(self) -> int:
@@ -458,8 +472,7 @@ class LaunchPlan:
     def walk(self, h_perm: torch.Tensor, gather) -> torch.Tensor:
         """The plan table by table through ``gather(buf, tbl, padcnt,
         out=)``: what the kernel's launches compute, on any device."""
-        work = torch.empty((self.work_rows, h_perm.shape[1]),
-                           dtype=h_perm.dtype, device=h_perm.device)
+        work = self._work(h_perm)
         for level in self.levels:
             src = h_perm if level.src_row is None else work[
                 level.src_row:level.src_row + level.src_rows]
@@ -473,8 +486,7 @@ class LaunchPlan:
         ``h_perm``'s CUDA device.  Nothing here but the allocation of the
         work buffer and the launches: a step calls it twice."""
         d = h_perm.shape[1]
-        work = torch.empty((self.work_rows, d), dtype=h_perm.dtype,
-                           device=h_perm.device)
+        work = self._work(h_perm)
         src0, base = h_perm.data_ptr(), work.data_ptr()
         vec, lanes = pack_shape(d, 4, src0, base)
         device = h_perm.device.index
@@ -557,6 +569,41 @@ def _full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def hub_product(hub_counts: torch.Tensor, xh: torch.Tensor,
+                precision: str) -> torch.Tensor:
+    """``B @ xh`` with JAX's precision per mode: "f32" is one f32
+    product; "bf16" and "hi_lo" take the bf16-rounded hi (and lo) parts,
+    each multiplied in f32 — JAX's bf16 dot with
+    preferred_element_type=f32."""
+    with _full_f32_matmul():
+        if precision == "f32":
+            return hub_counts @ xh
+        hi = xh.to(torch.bfloat16)
+        out = hub_counts @ hi.float()
+        if precision == "hi_lo":
+            lo = (xh - hi.float()).to(torch.bfloat16)
+            out = out + hub_counts @ lo.float()
+    return out
+
+
+def upload_table(tbl: np.ndarray, pc: Optional[np.ndarray], rows: int,
+                 device):
+    """One host gather table (and its pad counts) on ``device`` as
+    (int32 [N, W], f32 [N] or None), its shape checked and its indices
+    checked against the ``rows`` rows it gathers from."""
+    if tbl.ndim != 2:
+        raise ValueError(f"a gather table must be 2-D, got {tbl.shape}")
+    if tbl.size and (tbl.min() < 0 or tbl.max() >= rows):
+        raise ValueError(f"table indices outside [0, {rows})")
+    if pc is not None and pc.shape != tbl.shape[:1]:
+        raise ValueError(f"padcnt {pc.shape} for a table of "
+                         f"{tbl.shape[0]} rows")
+    return (torch.from_numpy(np.ascontiguousarray(
+                tbl, dtype=np.int32)).to(device),
+            None if pc is None else torch.from_numpy(
+                np.ascontiguousarray(pc, dtype=np.float32)).to(device))
+
+
 Table = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 
@@ -593,19 +640,7 @@ class BinnedEllDevice:
         device = as_device(device)
 
         def table(tbl, pc, rows):
-            if tbl.ndim != 2:
-                raise ValueError(f"a gather table must be 2-D, got "
-                                 f"{tbl.shape}")
-            if tbl.size and (tbl.min() < 0 or tbl.max() >= rows):
-                raise ValueError(f"table indices outside [0, {rows})")
-            if pc is not None and pc.shape != tbl.shape[:1]:
-                raise ValueError(f"padcnt {pc.shape} for a table of "
-                                 f"{tbl.shape[0]} rows")
-            return (torch.from_numpy(np.ascontiguousarray(
-                        tbl, dtype=np.int32)).to(device),
-                    None if pc is None else torch.from_numpy(
-                        np.ascontiguousarray(pc, dtype=np.float32)
-                        ).to(device))
+            return upload_table(tbl, pc, rows, device)
 
         v = layout.num_vertices
         head, rows = [], v
@@ -642,20 +677,9 @@ class BinnedEllDevice:
         return self.plan.launches_per_apply
 
     def _hub_part(self, h_perm: torch.Tensor) -> torch.Tensor:
-        """``B @ h_perm[hubs]`` with JAX's precision per mode: "f32" is
-        one f32 product; "bf16" and "hi_lo" take the bf16-rounded hi
-        (and lo) parts, each multiplied in f32 — JAX's bf16 dot with
-        preferred_element_type=f32."""
-        xh = h_perm[self.hub_rows]
-        with _full_f32_matmul():
-            if self.hub_precision == "f32":
-                return self.hub_counts @ xh
-            hi = xh.to(torch.bfloat16)
-            out = self.hub_counts @ hi.float()
-            if self.hub_precision == "hi_lo":
-                lo = (xh - hi.float()).to(torch.bfloat16)
-                out = out + self.hub_counts @ lo.float()
-        return out
+        """``B @ h_perm[hubs]`` (``hub_product``)."""
+        return hub_product(self.hub_counts, h_perm[self.hub_rows],
+                           self.hub_precision)
 
     def apply_perm(self, h_perm: torch.Tensor, gather=None) -> torch.Tensor:
         """Aggregated [V, D] in the permuted space.  A CUDA ``h_perm``

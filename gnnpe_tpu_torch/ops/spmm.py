@@ -13,6 +13,8 @@ show that its main path went through the kernel.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -70,7 +72,9 @@ def neighbor_sum_plain(offsets: torch.Tensor, neighbors: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: the position loop of ``neighbor_sum_np``
     on tensors — step j adds the j-th neighbour of every row that has
-    one.  (index_add_/scatter_add_ do not fix the summation order.)"""
+    one.  (index_add_/scatter_add_ do not fix the summation order.)
+    The output has one row per row of ``offsets``, which need not be as
+    many as ``x`` has."""
     deg = (offsets[1:] - offsets[:-1]).long()
     out = torch.zeros((deg.numel(), x.shape[1]), dtype=x.dtype,
                       device=x.device)
@@ -85,7 +89,7 @@ def neighbor_sum_plain(offsets: torch.Tensor, neighbors: torch.Tensor,
     return out
 
 
-def _check(offsets, neighbors, x):
+def _check(offsets, neighbors, x, square):
     for name, t in (("offsets", offsets), ("neighbors", neighbors)):
         if t.dtype != torch.int32 or t.dim() != 1:
             raise TypeError(f"{name} must be a 1-D int32 tensor, got "
@@ -93,9 +97,13 @@ def _check(offsets, neighbors, x):
     if x.dtype not in _KERNELS or x.dim() != 2:
         raise TypeError(f"x must be a 2-D float32/float64 tensor, got "
                         f"{x.dtype} with {x.dim()} dims")
-    if offsets.numel() != x.shape[0] + 1:
+    if offsets.numel() < 1:
+        raise ValueError("offsets must have at least one entry")
+    if square and offsets.numel() != x.shape[0] + 1:
         raise ValueError(f"offsets has {offsets.numel()} entries for "
                          f"{x.shape[0]} rows of x")
+    if neighbors.numel() and x.shape[0] == 0:
+        raise ValueError("x has no rows to gather")
     for name, t in (("offsets", offsets), ("neighbors", neighbors),
                     ("x", x)):
         if not t.is_contiguous():
@@ -105,19 +113,29 @@ def _check(offsets, neighbors, x):
 
 
 def neighbor_sum(offsets: torch.Tensor, neighbors: torch.Tensor,
-                 x: torch.Tensor, with_vde: bool = False):
+                 x: torch.Tensor, with_vde: bool = False,
+                 rectangular: bool = False):
     """nx (and, with ``with_vde``, the pair (nx, x + nx)) for int32 CSR
-    ``offsets``/``neighbors`` and a row-major f32/f64 ``x`` [V, D]."""
+    ``offsets``/``neighbors`` and a row-major f32/f64 ``x`` [R, D].
+
+    With ``rectangular`` the output's rows need not be as many as
+    ``x``'s: ``offsets`` has one entry more than the output has rows and
+    ``neighbors`` index the R rows of ``x`` (the caller answers for the
+    bounds) — a halo shard sums its own and its received rows into its
+    own rows only.  ``with_vde`` is square only."""
     global LAUNCHES
-    _check(offsets, neighbors, x)
+    if with_vde and rectangular:
+        raise ValueError("with_vde needs a square sum")
+    _check(offsets, neighbors, x, not rectangular)
+    n_rows = offsets.numel() - 1
     if x.device.type == "cpu":
         nx = neighbor_sum_plain(offsets, neighbors, x)
         return (nx, x + nx) if with_vde else nx
     if x.device.type != "cuda":
         raise ValueError(f"no neighbor_sum kernel for device {x.device}")
-    nx = torch.empty_like(x)
+    nx = torch.empty((n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
     vde = torch.empty_like(x) if with_vde else None
-    if x.numel():
+    if nx.numel():
         from gnnpe_tpu_torch.kernels._build import load
         fn = getattr(load("spmm_csr"), _KERNELS[x.dtype])
         vec, lanes = pack_shape(
@@ -126,7 +144,7 @@ def neighbor_sum(offsets: torch.Tensor, neighbors: torch.Tensor,
         narrow = lanes <= NARROW_LANES
         err = fn(x.device.index, offsets.data_ptr(),
                  neighbors.data_ptr(), x.data_ptr(), nx.data_ptr(),
-                 vde.data_ptr() if with_vde else None, x.shape[0],
+                 vde.data_ptr() if with_vde else None, n_rows,
                  x.shape[1], vec, lanes,
                  LONG_ROWS if narrow else -1, int(narrow),
                  torch.cuda.current_stream(x.device).cuda_stream)
@@ -153,3 +171,51 @@ class NeighborSum(torch.autograd.Function):
     def backward(ctx, g):
         offsets, neighbors = ctx.saved_tensors
         return None, None, neighbor_sum(offsets, neighbors, g.contiguous())
+
+
+@dataclass(frozen=True)
+class CsrPair:
+    """A rectangular sum and its transpose as int32 CSR tensors on one
+    device: ``offsets``/``neighbors`` sum rows of the source into the
+    output, ``t_offsets``/``t_neighbors`` sum rows of the output's
+    cotangent into the source's (``from_arcs`` builds both on the
+    host)."""
+    offsets: torch.Tensor
+    neighbors: torch.Tensor
+    t_offsets: torch.Tensor
+    t_neighbors: torch.Tensor
+
+    @classmethod
+    def from_arcs(cls, dst: np.ndarray, src: np.ndarray, num_dst: int,
+                  num_src: int, device) -> "CsrPair":
+        """From arcs ``src[i] → dst[i]`` in any order; within a row the
+        neighbours keep the arcs' order (a stable sort by row)."""
+        def csr(rows, cols, n):
+            o = np.argsort(rows, kind="stable")
+            off = np.concatenate(
+                [[0], np.cumsum(np.bincount(rows, minlength=n))])
+            return (torch.from_numpy(off.astype(np.int32)).to(device),
+                    torch.from_numpy(
+                        np.ascontiguousarray(cols[o], np.int32)).to(device))
+
+        dst = np.asarray(dst, np.int64)
+        src = np.asarray(src, np.int64)
+        return cls(*csr(dst, src, num_dst), *csr(src, dst, num_src))
+
+
+class CsrSum(torch.autograd.Function):
+    """``neighbor_sum`` over a ``CsrPair``: the backward is the same
+    kernel over the transposed arcs, so nothing scatters.
+    Use as ``CsrSum.apply(x, pair)``."""
+
+    @staticmethod
+    def forward(ctx, x, pair):
+        ctx.pair = pair
+        return neighbor_sum(pair.offsets, pair.neighbors, x.contiguous(),
+                            rectangular=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        pair = ctx.pair
+        return neighbor_sum(pair.t_offsets, pair.t_neighbors,
+                            g.contiguous(), rectangular=True), None

@@ -100,6 +100,52 @@ def test_online_many_parity(graphs, pe_pair, pge_pair, variant, union):
     assert sum(r.answer_count for r in got) > 0
 
 
+@pytest.mark.parametrize("variant", ["pe", "pge"])
+@pytest.mark.parametrize("engine", ["native", "python"])
+def test_return_embeddings_parity(graphs, pe_pair, pge_pair, variant, engine):
+    """``online(return_embeddings=True)`` fills ``MatchResult.embeddings``
+    with gnnpe_tpu's matches, row for row; without it the field is None."""
+    _, queries = graphs
+    ref, port = pe_pair if variant == "pe" else pge_pair
+    for q in queries[:2]:
+        want = ref.online(q, engine=engine, return_embeddings=True)
+        got = port.online(q, engine=engine, return_embeddings=True)
+        _assert_same_result(got, want)
+        assert got.embeddings.shape == (got.answer_count, q.num_vertices)
+        assert np.array_equal(np.asarray(got.embeddings, np.int64),
+                              np.asarray(want.embeddings, np.int64))
+        assert port.online(q, engine=engine).embeddings is None
+
+
+def test_membership_and_flat_table_are_kept(graphs):
+    """``membership=`` reaches PE's ``partition_rows`` as in gnnpe_tpu,
+    ``build_index(packed=False)`` keeps ``data_pde`` and no packed index,
+    and ``DevicePackedPGESearch.close`` frees the index."""
+    from gnnpe_tpu.graph.partition import partition_graph
+    g, queries = graphs
+    membership = partition_graph(g, 3)
+    cfg = PEConfig.from_cli(l=2, e=2)
+    ref = RefPEEngine(cfg, g, membership=membership).offline().build_index(
+        packed=False)
+    port = PEEngine(cfg, g, "cpu", membership=membership).offline()
+    port.build_index(packed=False)
+    assert port.index is None and ref.index is None
+    for a, b in zip(ref.partition_rows, port.partition_rows):
+        assert np.array_equal(a, b)
+    for name in ("vids", "labels", "degrees", "pde", "pde_label"):
+        assert np.array_equal(getattr(ref.data_pde, name),
+                              getattr(port.data_pde, name))
+    with pytest.raises(RuntimeError, match="attach_device"):
+        port.online(queries[0])
+    pge = PGEEngine(PGEConfig.from_cli(l=2, e=2), g, "cpu").offline()
+    pge.build_index(block_size=16).attach_device("cpu")
+    assert pge.online(queries[0]).answer_count > 0
+    pge.searcher.close()
+    assert pge.searcher.d_labels is None
+    with pytest.raises(RuntimeError, match="closed"):
+        pge.online(queries[0])
+
+
 def test_pge_pathless_query_raises(pge_pair):
     _, port = pge_pair
     lonely = CSRGraph.from_edges(1, np.zeros((0, 2), np.int64),
@@ -296,6 +342,9 @@ paths = np.random.RandomState(0).randint(0, g.num_vertices, (64, 3))
 st = train.fit(model, g, paths, num_steps=3, batch_size=32,
                aggregation="binned", negatives=True, device="cpu")
 assert st.step == 3 and embedder.model_embedder(model, "cpu")(q).vde.shape
+# The multi-device layer on two gloo ranks (each rank checks itself too).
+from gnnpe_tpu_torch.parallel.dryrun import dryrun_multichip
+dryrun_multichip(2, "cpu", "cpu")
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "gnnpe_tpu"))
 assert not foreign, foreign

@@ -480,3 +480,44 @@ def test_artifact_store(tmp_path):
         stores[s].write_all_paths(str(tmp_path / f"{s}.paths"), paths)
     assert (tmp_path / f"{REF}.paths").read_bytes() == \
         (tmp_path / f"{PORT}.paths").read_bytes()
+
+
+# ---- 10. graph algorithms, the dynamic graph, small helpers --------------------
+
+def test_graph_ops_orders_matching_and_components():
+    g = graphs(seed=14, v=120, e=260, hub=20)
+    for fn in ("bfs_order", "dfs_order"):
+        same(*both("graph.ops", fn, lambda f, s: f(g[s], 3)))
+    same(*both("graph.ops", "core_order", lambda f, s: f(g[s])))
+    same(g[REF].k_core(), g[PORT].k_core())
+    same(*both("graph.ops", "connected_components", lambda f, s: f(g[s])))
+    rng = np.random.RandomState(4)
+    adj = [np.unique(rng.randint(0, 9, rng.randint(0, 4))) for _ in range(12)]
+    same(*both("graph.ops", "bipartite_match", lambda f, s: f(adj, 9)))
+
+
+def test_dynamic_graph_updates_and_snapshot():
+    g = graphs(seed=15, v=60, e=120, hub=8)
+    snaps, logs = [], []
+    for s in SIDES:
+        dyn = mod(s, "graph.dynamic")
+        dg = dyn.DynamicGraph.from_csr(g[s])
+        v = dg.add_vertex(3)
+        dg.add_edge(v, 0)
+        dg.add_edge(v, 7)
+        dg.remove_edge(0, 1)
+        dg.remove_vertex(5)
+        snap = dg.snapshot()
+        snaps.append([snap.offsets, snap.neighbors, snap.labels])
+        logs.append([dataclasses.astuple(u) for u in dg.updates])
+        assert type(snap).__module__ == f"{s}.graph.csr"
+    same(*snaps)
+    assert logs[0] == logs[1]
+
+
+def test_path_group_keys_and_er_graph():
+    group = np.random.RandomState(6).rand(9, 2, 4)
+    same(*both("embed.pde", "path_group_keys", lambda f, s: f(group)))
+    a, b = both("io.datasets", "er_graph", lambda f, s: f(300, 900, 5, seed=2))
+    for name in ("offsets", "neighbors", "labels"):
+        same(getattr(a, name), getattr(b, name))
