@@ -112,7 +112,43 @@
    a numpy forward of the same weights.  Then a 50-step
    ``aggregation="segment"`` fit from the same initial weights and
    batches (the binned run's first chunk) must track the binned loss
-   history within rtol 1e-3.
+   history within rtol 1e-3.  ``fit`` prices the binned layout's hubs
+   with the card's measured constants (phase 14); that host layout must
+   equal the one of gnnpe_tpu's "cpu" row, which the recorded losses
+   came from (no hubs, the same permutation and tables).
+11. Ladder phase (after the multi-device phase): the slice's entry point,
+   ``frontends/ladder.py:run_rung("dblp")`` on the 8 queries of phases 4
+   and 6 with serving: the PE and PGE rows spot-verified (query 0 and the
+   heaviest, against the flat host filter), serving without error, each
+   query's Σ|candidates| equal to that phase's oracle (every query
+   reaches the answer cap, so the answers alone could not tell) and the
+   mean answers to the mean of its 8 counts.
+12. Uniform-ELL phase: ``build_ell(width=8, level2_width=8)`` on dblp,
+   ``HierarchicalEll`` through kernel A2 (one launch a level: the level's
+   input gets a zero row, every -1 pad points at it) bit-equal to its
+   masked plain form at f32 D=2 and D=128 and within rtol 1e-5 of A1's
+   sum, timed as in phase 3 beside ``embedding_bag`` over the same
+   tables; its padding against the binned layout's; ``semijoin_prune(
+   ell=)`` on the PE oracle's candidates equal to the A1 form; one
+   attention hop (D=16) within rtol 1e-4 of a float64 numpy hop; the
+   intersect and bitset forms on the card equal to numpy.
+13. Profile phase: ``utils/profiling.trace`` around 5 warm binned ``fit``
+   steps (the train phase's model and pairs), its top device kernels and
+   ops by share of device time and the share of ``IndexBackward0``; a
+   trace of one PGE ``online`` call must hold the stage ranges
+   ``query_plan``, ``search``, ``refine``.
+14. Probe phase (last): ``utils/device_probe.device_constants`` measured
+   on the card (its matmul the hub product's: f32, TF32 off), and the
+   youtube and youtube_skew rungs' binned layouts built with them (a
+   count charged the 4 bytes it takes on the card, any hub the product's
+   passes over the output).  Each is timed in turns against the other
+   choice on the same graph — no hubs, or as many as the memory budget
+   holds — and the prices' choice must not be the slower one on the card
+   by more than 10 %; the layout with hubs is held to A1's sum.  On the
+   first rung's layout with hubs, ``BinnedEllDevice.apply`` — A2's launch
+   plan plus the hub product — bit-equal to its plain version and within
+   the hi/lo tolerance (2e-3 of max(|sum|, 1)) of A1's sum at f32 D=2
+   and D=128, timed as in phase 8.
 
 The card's f64 data-graph VDE must equal the port's numpy
 ``gen_vde_host``.  Every query's candidates must equal the flat f64 host
@@ -122,8 +158,9 @@ every answer count must equal native refinement on
 those candidates; the table and device phases share the oracle of the
 phase before them.  Each kernel's launch count over the main path of
 the phases that run it (A1: PE, PE table, PE streamed, PGE, PGE device,
-both pre-verify runs, multi-device and train; A2: multi-device and
-train) must be > 0, and the index tensors must live on the card.
+both pre-verify runs, multi-device, ladder and train; A2: multi-device,
+train and the uniform-ELL pre-verify and attention) must be > 0, and
+the index tensors must live on the card.
 At the end neither ``jax`` nor any module of ``gnnpe_tpu`` may have been
 imported.  Any failure exits non-zero.  The full record is printed as one
 ``record: {...}`` line; the second-to-last line is the kernels record,
@@ -1557,15 +1594,35 @@ def _numpy_forward(model, g) -> np.ndarray:
     return h
 
 
-def train_phase(g, device, record, launches_per_apply) -> tuple:
+def train_phase(g, device, record) -> tuple:
     """train_payoff.run at the dblp rung (the main path: counts set to 0
     just before, read just after), then its checks and the segment fit;
-    returns the (A1, A2) launches of the run."""
+    returns the (A1, A2) launches of the run.  ``fit`` prices the binned
+    layout's hubs with the card's measured constants; the recorded losses
+    came from the layout of gnnpe_tpu's "cpu" row, so the two host
+    layouts must be one (no hubs, the same permutation and tables)."""
     import torch
     from gnnpe_tpu_torch.frontends import train_payoff
     from gnnpe_tpu_torch.models.gnn import PathGNN
     from gnnpe_tpu_torch.models.train import fit
     from gnnpe_tpu_torch.ops import ell, spmm
+    measured = ell.build_binned_ell(g.offsets, g.neighbors, device=device)
+    pinned = ell.build_binned_ell(g.offsets, g.neighbors,
+                                  hub_prices=ell.HUB_PRICES)
+    hubs = 0 if measured.hub_rows is None else len(measured.hub_rows)
+    check(hubs == 0 and pinned.hub_rows is None
+          and measured.num_slots == pinned.num_slots
+          and np.array_equal(measured.perm, pinned.perm)
+          and all(np.array_equal(a, b) for a, b in zip(
+              measured.class_tables + measured.head_tables,
+              pinned.class_tables + pinned.head_tables)),
+          f"train: the dblp layout priced by the card ({hubs} hubs, "
+          f"{measured.num_slots} slots) is not the pinned row's "
+          f"({pinned.num_slots} slots) that the recorded losses came from")
+    # The plan depends on the tables' shapes only: laid out on the host.
+    launches_per_apply = ell.BinnedEllDevice.from_host(
+        measured, "cpu").launches_per_apply
+    del measured, pinned
     spmm.LAUNCHES = 0
     ell.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1578,6 +1635,7 @@ def train_phase(g, device, record, launches_per_apply) -> tuple:
     aggregation = trained_row["aggregation"]
     rec = dict(wall_s=wall_s, spmm_launches=launches[0],
                ell_launches=launches[1], aggregation=aggregation,
+               hubs_with_measured_prices=hubs,
                train_paths=int(len(pay.train_paths)),
                train_s=trained_row["train_s"], step_ms=trained_row["step_ms"],
                loss_first=hist[0], loss_last=hist[-1],
@@ -1639,6 +1697,449 @@ def train_phase(g, device, record, launches_per_apply) -> tuple:
           f"{rec['segment']['step_ms']:.3f} ms/step)")
     torch.cuda.synchronize()
     return launches
+
+
+# ---- the probe, ladder, uniform-ELL and profile phases ---------------------
+
+def _hub_layout_bytes(lay, d: int, count_bytes: int) -> int:
+    """Bytes one ``BinnedEllDevice.apply_perm`` must move: the plan's
+    (every table and padcnt read once, its rows written once, every
+    level's input read once), the hub counts at ``count_bytes`` a count
+    (the least that holds them: the host layout's int8 or int16), the
+    hub rows read once and the output written once more by the product's
+    add."""
+    plan = lay.plan
+    moved = sum(4 * t.rows * t.width + 4 * t.rows * d
+                + (4 * t.rows if t.padcnt is not None else 0)
+                for lv in plan.levels for t in lv.tables)
+    moved += sum(4 * lv.src_rows * d for lv in plan.levels)
+    if lay.hub_counts is not None:
+        h = lay.hub_counts.shape[1]
+        moved += (count_bytes * lay.num_vertices * h + 4 * h * d
+                  + 4 * lay.num_vertices * d)
+    return moved
+
+
+def _layout_turns(with_hubs, without, xs) -> dict:
+    """``apply_perm`` of two layouts of one graph in turns (with,
+    without, without, with) by CUDA events, and each on the card alone,
+    at every width of ``xs`` (D -> x)."""
+    out = {}
+    for d, x in xs.items():
+        hw, hn = with_hubs.permute(x), without.permute(x)
+        turns = [cuda_ms(lambda: lay.apply_perm(h), 10) for lay, h in
+                 ((with_hubs, hw), (without, hn), (without, hn),
+                  (with_hubs, hw))]
+        out[f"d{d}"] = dict(
+            turns_ms=turns, with_hubs_ms=(turns[0] + turns[3]) / 2,
+            without_ms=(turns[1] + turns[2]) / 2,
+            with_hubs_device_ms=graph_ms(lambda: with_hubs.apply_perm(hw)),
+            without_device_ms=graph_ms(lambda: without.apply_perm(hn)))
+        del hw, hn
+    return out
+
+
+def probe_phase(device, smi, record) -> dict:
+    """The measured hub prices of this card; the youtube and youtube_skew
+    rungs' binned layouts built with them, each timed in turns against
+    the same graph's other choice (with hubs against none, none against
+    as many hubs as the memory budget holds): the prices' choice must not
+    be the slower; then, on the first rung's layout with hubs,
+    ``BinnedEllDevice.apply`` — A2's launch plan plus the hub product —
+    bit-equal to its plain version and against A1's neighbour sum within
+    the hi/lo tolerance at f32 D=2 and D=128, timed as the A2 phase times
+    it.  Returns A2's rows."""
+    import torch
+    import torch.nn.functional as F
+    from gnnpe_tpu_torch.graph.csr import to_device
+    from gnnpe_tpu_torch.io.datasets import load_dataset
+    from gnnpe_tpu_torch.ops import ell, spmm
+    from gnnpe_tpu_torch.utils import device_probe
+    from gnnpe_tpu_torch.utils.device_probe import CPU_ROW, device_constants
+    # The constants every layout of this process was priced with (the
+    # first call measured them), and a second probe for their spread.
+    consts = device_constants(device)
+    t0 = time.perf_counter()
+    again = device_probe._probe(device)
+    rec = record["probe"] = dict(
+        probe_s=time.perf_counter() - t0, card=smi,
+        bytes_per_s=consts[0], f32_matmul_flop_per_s=consts[1],
+        gather_s_per_row=consts[2], second_probe=list(again),
+        cpu_row=list(CPU_ROW))
+    check(all(np.isfinite(consts)) and min(consts) > 0,
+          f"probe: constants {consts}")
+    for what, c in (("in use", consts), ("second probe", again)):
+        print(f"probe ({smi}), {what}: memory {c[0] / 1e12:.3f} TB/s, f32 "
+              f"matmul (TF32 off) {c[1] / 1e12:.2f} TFLOP/s, gather "
+              f"{c[2] * 1e9:.4f} ns a 512-byte row")
+    print(f"probe: one probe takes {rec['probe_s']:.3f} s")
+    entry, passes = ell.hub_costs(device, "hi_lo")
+    rng = np.random.RandomState(7)
+    found = None
+    for rung in ("youtube", "youtube_skew"):
+        t0 = time.perf_counter()
+        g = load_dataset(rung, seed=0)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = ell.build_binned_ell(g.offsets, g.neighbors, device=device)
+        build_s = time.perf_counter() - t0
+        nh = 0 if host.hub_rows is None else len(host.hub_rows)
+        occ = np.bincount(g.neighbors, minlength=g.num_vertices)
+        v = g.num_vertices
+        col_s = entry * v / consts[0] + 4.0 * v * 128 / consts[1]
+        thresh = col_s / consts[2]
+        over = np.sort(occ[occ > thresh])
+        # The other choice: no hubs where the prices took some, else as
+        # many as the 256 MB budget holds (every price but the gather's
+        # free, so only the budget and max_hubs cap them).
+        other = (ell.build_binned_ell(g.offsets, g.neighbors, device=device,
+                                      hub_matmul=False) if nh else
+                 ell.build_binned_ell(g.offsets, g.neighbors, device=device,
+                                      hub_prices=(np.inf, np.inf, consts[2])))
+        r = rec[rung] = dict(
+            vertices=v, arcs=int(len(g.neighbors)), max_degree=g.max_degree,
+            gen_s=gen_s, build_s=build_s, hub_threshold=thresh,
+            entry_bytes=entry, output_passes=passes, hubs=nh,
+            hub_arcs=host.num_hub_arcs, sources_over_threshold=len(over),
+            # What those sources' gathers would save beyond their columns,
+            # against what any hub costs in passes over the output.
+            over_threshold_saves_s=float(consts[2] * over.sum()
+                                         - len(over) * col_s),
+            fixed_cost_s=passes * 4.0 * v * 128 / consts[0],
+            hub_precision=host.hub_precision, num_slots=host.num_slots,
+            other_hubs=0 if other.hub_rows is None else len(other.hub_rows),
+            other_num_slots=other.num_slots)
+        print(f"probe: {rung} layout with the card's prices: "
+              + json.dumps(r))
+        lay, alt = (ell.BinnedEllDevice.from_host(x, device)
+                    for x in (host, other))
+        with_hubs, without = (lay, alt) if nh else (alt, lay)
+        xs = {d: torch.from_numpy(rng.rand(v, d).astype(np.float32)).to(
+            device) for d in (2, 128)}
+        off, nbr, _, _ = to_device(g, device)
+        for d, x in xs.items():
+            want = spmm.neighbor_sum(off, nbr, x)
+            got = with_hubs.apply(x)
+            rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+            check(rel < 2e-3, f"probe: {rung} with hubs D={d} leaves A1's "
+                  f"sum by {rel} (hi/lo tolerance 2e-3)")
+            del want, got
+        r["turns"] = _layout_turns(with_hubs, without, xs)
+        for d, t in r["turns"].items():
+            print(f"probe: {rung} {d} with {r['hubs'] or r['other_hubs']} "
+                  f"hubs against none, by events {t['with_hubs_ms']:.4f} / "
+                  f"{t['without_ms']:.4f} ms (turns {t['turns_ms']}), on the "
+                  f"card alone {t['with_hubs_device_ms']:.4f} / "
+                  f"{t['without_device_ms']:.4f} ms")
+            chosen, rejected = ((t["with_hubs_device_ms"],
+                                 t["without_device_ms"]) if nh else
+                                (t["without_device_ms"],
+                                 t["with_hubs_device_ms"]))
+            check(chosen <= 1.1 * rejected,
+                  f"probe: {rung} {d}: the prices' layout takes {chosen:.4f} "
+                  f"ms on the card, the other {rejected:.4f} ms")
+        if found is None:
+            found = (rung, g, host if nh else other, with_hubs, xs, off, nbr)
+        del lay, alt, with_hubs, without, xs, off, nbr, other
+        torch.cuda.empty_cache()
+    # The hub product's own check and times: on the first rung's layout
+    # with hubs, the prices' own or the budget's.
+    rung, g, host, lay, xs, off, nbr = found
+    rec["rung"] = rung
+    rec["launches_per_apply"] = lay.launches_per_apply
+    nh, v = len(host.hub_rows), g.num_vertices
+
+    def bag(buf, tbl, padcnt, out):
+        out.copy_(F.embedding_bag(tbl, buf, mode="sum"))
+    rows = {}
+    for d, x in xs.items():
+        h = lay.permute(x)
+        ell.LAUNCHES = 0
+        got = lay.apply_perm(h)
+        check(ell.LAUNCHES == lay.launches_per_apply,
+              f"probe: {ell.LAUNCHES} A2 launches for one apply of "
+              f"{lay.launches_per_apply}")
+        plain = lay.apply_perm(h, gather=ell.gather_sum_plain)
+        want = lay.permute(spmm.neighbor_sum(off, nbr, x))
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        check(torch.equal(got, plain), f"probe: A2 + hub product D={d} "
+              f"differs from its plain version (max abs err {err})")
+        rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+        check(rel < 2e-3, f"probe: A2 + hub product D={d} leaves A1's sum "
+              f"by {rel} (hi/lo tolerance 2e-3)")
+        name = f"hub_{rung}_f32_d{d}"
+        ops = lay.num_slots * d + 2 * v * nh * d * (
+            2 if lay.hub_precision == "hi_lo" else 1)
+        rows[name] = dict(max_abs_err=err, rel_err_vs_a1=rel, **_measure(
+            lambda: lay.apply_perm(h, gather=ell.gather_sum_plain),
+            lambda: lay.apply_perm(h), lambda: lay.apply_perm(h, gather=bag),
+            bytes_moved=_hub_layout_bytes(lay, d,
+                                          host.hub_counts.itemsize),
+            operations=ops, bytes_gathered=lay.num_slots * d * 4))
+        _print_turns(f"ell_gather_sum + hub product {name} "
+                     f"({lay.launches_per_apply} launches, {nh} hubs; within "
+                     f"{rel:.2e} of A1)", rows[name])
+    rec["rows"] = rows
+    return rows
+
+
+def ladder_phase(device, record, pe_oracle, pge_oracle) -> int:
+    """``run_rung("dblp")`` on the 8 queries of the PE and PGE phases
+    (the slice's entry point): both rows spot-verified, serving without
+    error, each query's Σ|candidates| equal to the phase oracle's and the
+    mean answers to the phase's counts.  Every query reaches the answer
+    cap, so the candidates are what can tell a wrong search.  Returns
+    A1's launches over the run."""
+    from gnnpe_tpu_torch.frontends.ladder import run_rung
+    from gnnpe_tpu_torch.ops import ell, spmm
+    spmm.LAUNCHES = ell.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rows = run_rung("dblp", queries=len(QUERY_SEEDS), query_size=QUERY_SIZE,
+                    seed=QUERY_SEEDS[0], max_answers=MAX_ANSWERS, serve=True,
+                    device=device)
+    wall_s = time.perf_counter() - t0
+    launches = (spmm.LAUNCHES, ell.LAUNCHES)
+    record["ladder"] = dict(rows=rows, wall_s=wall_s, launches=launches)
+    for row in rows:
+        print("ladder row: " + json.dumps(row))
+    check([r["variant"] for r in rows] == ["pe", "pge"],
+          f"ladder: rows {[r['variant'] for r in rows]}")
+    for row, oracle in zip(rows, (pe_oracle, pge_oracle)):
+        v, counts = row["variant"], oracle["counts"]
+        want = [int(sum(len(c) for c in w)) for w in oracle["wants"]]
+        check(row["spot_verified"] and row["spot_verified_p90"],
+              f"ladder {v}: spot check failed: {row['spot_error']}")
+        check(row["serving"] is not None and "error" not in row["serving"],
+              f"ladder {v}: serving failed: {row['serving']}")
+        check(row["candidates"] == want,
+              f"ladder {v}: candidates per query {row['candidates']}, the "
+              f"{v} oracle's {want}")
+        check(row["queries"] == len(counts)
+              and row["mean_answers"] == round(float(np.mean(counts)), 1),
+              f"ladder {v}: mean answers {row['mean_answers']} over "
+              f"{row['queries']} queries, the {v} phase's {counts}")
+    # One A1 launch for the data graph's VDE per variant, one a query
+    # for its VDE in every search of a query (the loop, two spot
+    # checks, two serving passes).
+    check(launches[0] > 0 and launches[1] == 0,
+          f"ladder: launched {launches} (A1, A2)")
+    print(f"ladder: dblp PE and PGE rows spot-verified (query 0 and the "
+          f"heaviest), serving without error, each query's candidates and "
+          f"the mean answers equal to the phases' oracles; {wall_s:.1f} s, "
+          f"(A1, A2) launches {launches}")
+    return launches[0]
+
+
+def uniform_ell_phase(g, queries, device, record, cands) -> tuple:
+    """``build_ell(width=8, level2_width=8)`` on dblp through kernel A2
+    (one launch a level) against the masked plain form and A1's sum,
+    timed; then its main paths — ``semijoin_prune(ell=)`` on the PE
+    oracle's candidates of the 8 queries, one attention hop — held to the
+    A1 form and a float64 numpy hop, and the intersect and bitset forms
+    on the card against numpy.  Returns (A2 rows, A2 launches of the main
+    paths)."""
+    import torch
+    import torch.nn.functional as F
+    from gnnpe_tpu_torch.graph.csr import to_device
+    from gnnpe_tpu_torch.match.preverify import semijoin_prune
+    from gnnpe_tpu_torch.ops import ell, intersect, spmm
+    from gnnpe_tpu_torch.ops.sddmm import arc_endpoints, attention_aggregate
+    t0 = time.perf_counter()
+    hel = ell.build_ell(g.offsets, g.neighbors, width=8, level2_width=8)
+    dev = hel.on(device)
+    arcs = int(len(g.neighbors))
+    rec = record["uniform_ell"] = dict(
+        build_s=time.perf_counter() - t0,
+        levels=[list(t.shape) for t in dev.tables], num_slots=hel.num_slots,
+        padding_ratio=hel.num_slots / arcs,
+        binned_padding_ratio=record["ell_layout"]["num_slots"] / arcs,
+        launches_per_apply=dev.launches_per_apply)
+    print("uniform ell: " + json.dumps(rec))
+    off, nbr, _, _ = to_device(g, device)
+
+    def library(x):
+        # embedding_bag over each level's kernel table, the level's
+        # input with its zero row appended.
+        buf = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+        for tbl in dev.tables:
+            out = F.embedding_bag(tbl, buf, mode="sum")
+            buf = torch.cat([out, out.new_zeros((1, out.shape[1]))])
+        return buf[:-1]
+    rng = np.random.RandomState(8)
+    rows = {}
+    for d in (2, 128):
+        x = torch.from_numpy(rng.rand(g.num_vertices, d).astype(np.float32)
+                             ).to(device)
+        ell.LAUNCHES = 0
+        got = dev.apply(x)
+        check(ell.LAUNCHES == dev.launches_per_apply == len(dev.tables),
+              f"uniform ell: {ell.LAUNCHES} A2 launches for an apply of "
+              f"{len(dev.tables)} levels")
+        plain = dev.apply_plain(x)
+        want = spmm.neighbor_sum(off, nbr, x)
+        lib = library(x)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        check(torch.equal(got, plain), f"uniform ell D={d}: A2 differs from "
+              f"the masked plain form (max abs err {err})")
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+              f"uniform ell D={d}: leaves A1's sum by "
+              f"{float((got - want).abs().max())}")
+        check(torch.allclose(lib, want, rtol=1e-5, atol=1e-6),
+              f"uniform ell D={d}: the embedding_bag walk leaves A1's sum")
+        name = f"hier_f32_d{d}"
+        moved = sum(4 * t.numel() + 4 * t.shape[0] * d + 4 * r * d
+                    for t, r in zip(dev.tables, dev.src_rows))
+        rows[name] = dict(max_abs_err=err, **_measure(
+            lambda: dev.apply_plain(x), lambda: dev.apply(x),
+            lambda: library(x), bytes_moved=moved,
+            operations=hel.num_slots * d, bytes_gathered=hel.num_slots * d * 4))
+        _print_turns(f"ell_gather_sum HierarchicalEll {name} "
+                     f"({dev.launches_per_apply} launches)", rows[name])
+    rec["rows"] = rows
+
+    # Main paths: the pre-verify over the uniform layout, one attention
+    # hop; A2's launches read just after each.
+    ell.LAUNCHES = 0
+    pruned = [semijoin_prune(g, q, c, device, iters=PREVERIFY_ROUNDS, ell=hel)
+              for q, c in zip(queries, cands)]
+    a2_prune = ell.LAUNCHES
+    check(a2_prune > 0 and a2_prune % dev.launches_per_apply == 0
+          and a2_prune <= PREVERIFY_ROUNDS * len(queries)
+          * dev.launches_per_apply,
+          f"uniform ell: {a2_prune} A2 launches for {len(queries)} pruned "
+          f"queries")
+    for i, (q, c, p) in enumerate(zip(queries, cands, pruned)):
+        want = semijoin_prune(g, q, c, device, iters=PREVERIFY_ROUNDS)
+        check(len(p) == len(want) and all(np.array_equal(a, b)
+                                          for a, b in zip(p, want)),
+              f"uniform ell: semijoin_prune(ell=) query {i} differs from the "
+              "A1 form")
+    dst = arc_endpoints(g.offsets)
+    d = 16
+    xk, xq, xv = (rng.rand(g.num_vertices, d).astype(np.float32)
+                  for _ in range(3))
+    t = lambda a: torch.from_numpy(a).to(device)
+    ell.LAUNCHES = 0
+    out = attention_aggregate(hel, t(g.neighbors), t(dst), t(xk), t(xq),
+                              t(xv)).cpu().numpy()
+    a2_attn = ell.LAUNCHES
+    check(a2_attn == 2 * (len(dev.tables) - 1),
+          f"uniform ell: {a2_attn} A2 launches in one attention hop")
+    src = g.neighbors.astype(np.int64)
+    s = (xk[src].astype(np.float64) * xq[dst].astype(np.float64)).sum(1)
+    m = np.full(g.num_vertices, -np.inf)
+    np.maximum.at(m, dst, s)
+    e = np.exp(s - m[dst])
+    w = e / np.bincount(dst, weights=e, minlength=g.num_vertices)[dst]
+    ref = np.zeros((g.num_vertices, d))
+    np.add.at(ref, dst, w[:, None] * xv[src].astype(np.float64))
+    attn_err = float(np.abs(out - ref).max())
+    check(np.allclose(out, ref, rtol=1e-4, atol=1e-6),
+          f"uniform ell: attention leaves the f64 numpy hop by {attn_err}")
+    sets = [np.unique(np.concatenate(c)) for c in cands[:2]]
+    pads = [np.full(len(a) + 5, np.iinfo(np.int32).max, np.int32)
+            for a in sets]
+    for p, a in zip(pads, sets):
+        p[:len(a)] = a
+    valid = [t(np.arange(len(p)) < len(a)) for p, a in zip(pads, sets)]
+    vals, hit = intersect.intersect_sorted_device(t(pads[0]), valid[0],
+                                                  t(pads[1]), valid[1])
+    both = np.intersect1d(sets[0], sets[1])
+    bits = [t(intersect.bitset_from_ids(a, g.num_vertices).view(np.int32))
+            for a in sets]
+    count = int(intersect.bitset_count(intersect.bitset_and(*bits)))
+    check(np.array_equal(vals[hit].cpu().numpy(), both) and count == len(both),
+          f"uniform ell: intersect on the card {int(hit.sum())} / bitset "
+          f"{count}, numpy {len(both)}")
+    rec.update(prune_launches=a2_prune, attention_launches=a2_attn,
+               attention_max_abs_err=attn_err,
+               candidates_before=[int(sum(map(len, c))) for c in cands],
+               candidates_after=[int(sum(map(len, p))) for p in pruned],
+               intersect=[len(sets[0]), len(sets[1]), len(both)])
+    print(f"uniform ell: semijoin_prune(ell=) equals the A1 form on "
+          f"{len(queries)} queries ({a2_prune} A2 launches); attention D={d} "
+          f"within {attn_err:.2e} of float64 numpy ({a2_attn} A2 launches); "
+          f"intersect and bitset_count on the card equal numpy "
+          f"({len(sets[0])} & {len(sets[1])} -> {len(both)})")
+    return rows, a2_prune + a2_attn
+
+
+PROFILE_STEPS = 5
+PROFILE_TOP = 5
+
+
+def _trace_events(path: str) -> list:
+    with open(path) as f:
+        data = json.load(f)
+    return data["traceEvents"] if isinstance(data, dict) else data
+
+
+def profile_phase(g, paths, device, record, pge_engine, queries) -> None:
+    """``utils/profiling.trace`` around PROFILE_STEPS warm binned steps of
+    ``fit`` at dblp (the train phase's model, batch and pairs; two
+    untraced steps first), its top device kernels and ops by their share
+    of device time; then a trace of one PGE ``online`` call must hold the
+    engine's stage ranges."""
+    import torch
+    from gnnpe_tpu_torch.models.gnn import PathGNN
+    from gnnpe_tpu_torch.models.train import fit
+    from gnnpe_tpu_torch.utils.profiling import trace
+    model = PathGNN(dim=2, num_layers=1, labels_count=g.labels_count,
+                    activation="softplus", device=device)
+    kw = dict(batch_size=1024, seed=0, negatives=True, learning_rate=1e-2,
+              aggregation="binned", device=device)
+    state = fit(model, g, paths, num_steps=2, **kw)
+    with tempfile.TemporaryDirectory(prefix="gnnpe_trace_") as tmp:
+        with trace(tmp, device) as prof:
+            fit(model, g, paths, num_steps=PROFILE_STEPS, state=state, **kw)
+        events = _trace_events(prof.trace_path)
+        kernels = {}
+        for ev in events:
+            if ev.get("ph") == "X" and ev.get("cat") in (
+                    "kernel", "gpu_memcpy", "gpu_memset"):
+                kernels[ev["name"]] = kernels.get(ev["name"], 0.0) + ev["dur"]
+        total_us = sum(kernels.values())
+        check(total_us > 0, "profile: the trace holds no device time")
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+        attr = ("self_device_time_total" if hasattr(
+            prof.key_averages()[0], "self_device_time_total")
+            else "self_cuda_time_total")
+        ops = sorted(((e.key, getattr(e, attr), getattr(
+            e, attr.replace("self_", ""))) for e in prof.key_averages()),
+            key=lambda r: -r[1])
+        # The node and its evaluate_function wrapper hold the same
+        # kernels: the larger of the two, not their sum.
+        index_bw = max([total for key, _, total in ops
+                        if key.endswith("IndexBackward0")], default=0.0)
+        online_dir = f"{tmp}/online"
+        with trace(online_dir, device) as prof2:
+            pge_engine.online(queries[0], union="device")
+        names = {ev.get("name") for ev in _trace_events(prof2.trace_path)}
+    stages = ("query_plan", "search", "refine")
+    missing = [s for s in stages if s not in names]
+    check(not missing, f"profile: stage ranges {missing} not in the trace of "
+          "one online call")
+    rec = record["profile"] = dict(
+        steps=PROFILE_STEPS, device_us=total_us,
+        step_device_ms=total_us / 1e3 / PROFILE_STEPS,
+        top_kernels=[dict(name=n, us=us, share=us / total_us) for n, us in top],
+        top_ops=[dict(op=k, self_us=s, share=s / total_us)
+                 for k, s, _ in ops[:PROFILE_TOP]],
+        index_backward_us=index_bw, index_backward_share=index_bw / total_us)
+    print(f"profile: {PROFILE_STEPS} warm binned fit steps at dblp, "
+          f"{rec['step_device_ms']:.3f} ms of device time a step; top "
+          "kernels by share of device time:")
+    for k in rec["top_kernels"]:
+        print(f"  {100 * k['share']:6.2f} %  {k['us']:10.1f} us  {k['name']}")
+    print("  top ops by self device time:")
+    for k in rec["top_ops"]:
+        print(f"  {100 * k['share']:6.2f} %  {k['self_us']:10.1f} us  {k['op']}")
+    print(f"profile: IndexBackward0 (the backward of the x[idx] gathers) "
+          f"{100 * rec['index_backward_share']:.2f} % of device time; the "
+          f"stage ranges {list(stages)} are in the trace of one online call")
+    torch.cuda.synchronize()
 
 
 def _kernel_row(name, replaces, launches, rows, main_shape) -> dict:
@@ -1718,16 +2219,32 @@ def main() -> int:
     rows.update(a1_rect)
     ell_rows.update(a2_rect)
     peak("multi")
-    del pe_oracle, pge_oracle["engine"]
+    fresh()
+    launches += ladder_phase(device, record, pe_oracle, pge_oracle)
+    peak("ladder")
+    fresh()
+    hier_rows, a2_hier = uniform_ell_phase(g, queries, device, record,
+                                           pe_oracle["wants"])
+    ell_rows.update(hier_rows)
+    peak("uniform_ell")
+    fresh()
+    paths = pe_oracle["paths"]
+    paths = paths[np.sort(np.random.RandomState(3).choice(
+        len(paths), size=500_000, replace=False))]
+    profile_phase(g, paths, device, record,
+                  pge_oracle["engine"].attach_device(device), queries)
+    del pe_oracle, pge_oracle["engine"], paths
     fresh()
     launches += pge_device_phase(g, queries, device, record, pge_oracle)
     peak("pge_device")
     del pge_oracle
     fresh()
-    a1, a2 = train_phase(g, device, record,
-                         record["ell_layout"]["launches_per_apply"])
+    a1, a2 = train_phase(g, device, record)
     launches += a1
     peak("train")
+    fresh()
+    ell_rows.update(probe_phase(device, smi, record))
+    peak("probe")
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "gnnpe_tpu"))
     check(not foreign, f"the port imported {foreign}")
@@ -1738,7 +2255,7 @@ def main() -> int:
         _kernel_row("spmm_csr", "experiments/pallas_spmm.py:181", launches,
                     rows, "f64_d2"),
         _kernel_row("ell_gather_sum", "experiments/pallas_blocked_spmm.py:106",
-                    a2 + a2_multi, ell_rows, "f32_d2")]}))
+                    a2 + a2_multi + a2_hier, ell_rows, "f32_d2")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

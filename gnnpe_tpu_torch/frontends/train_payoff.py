@@ -85,7 +85,8 @@ def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
         variant: str = "pge", *, device) -> Payoff:
     """Fixed VDE, then a trained PathGNN, each served by a resident
     engine of ``variant`` ("pge" or "pe") built on ``device`` over the
-    same held-out queries."""
+    same held-out queries.  The binned layout's hubs are priced with
+    ``device``'s prices."""
     import torch
 
     from gnnpe_tpu_torch.config import PEConfig, PGEConfig

@@ -346,6 +346,13 @@ def _refine_boundary(src, dst, w, mem, num_parts, imbalance,
     return mem
 
 
+def edge_cut(graph: CSRGraph, membership: np.ndarray) -> int:
+    """Number of cross-partition undirected edges (partition quality)."""
+    src, dst = graph.coo()
+    cut = membership[src] != membership[dst]
+    return int(cut.sum()) // 2
+
+
 def write_membership(path: str, graph: CSRGraph,
                      membership: np.ndarray) -> None:
     """Emit the reference ``membership.txt`` wire format: one
@@ -355,3 +362,19 @@ def write_membership(path: str, graph: CSRGraph,
     with open(path, "w") as f:
         for node in order:
             f.write(f"{node} {membership[node]}\n")
+
+
+def read_membership(path: str, num_vertices: int):
+    """Parse ``membership.txt`` → (sorted_nodes, membership), mirroring
+    GNN-PE/src/main.cpp:77-85."""
+    sorted_nodes = np.zeros(num_vertices, dtype=np.int32)
+    membership = np.zeros(num_vertices, dtype=np.int32)
+    with open(path) as f:
+        for i, line in enumerate(f):
+            parts = line.split()
+            if not parts:
+                continue
+            node, part = int(parts[0]), int(parts[1])
+            sorted_nodes[i] = node
+            membership[node] = part
+    return sorted_nodes, membership

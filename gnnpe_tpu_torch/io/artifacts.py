@@ -82,3 +82,77 @@ class ArtifactStore:
             f.write(f"{paths.shape[0]}\n")
             for row in paths:
                 f.write(" ".join(map(str, row)) + " \n")
+
+    @staticmethod
+    def read_all_paths(path: str) -> np.ndarray:
+        tok = open(path).read().split()
+        n = int(tok[0])
+        arr = np.array(tok[1:], dtype=np.int64)
+        return arr.reshape(n, -1) if n else arr.reshape(0, 0)
+
+    @staticmethod
+    def write_partition_paths(path: str, rows: np.ndarray) -> None:
+        """partition_paths.txt: count then one path id per line
+        (GNN-PE/src/main.cpp:98-108)."""
+        with open(path, "w") as f:
+            f.write(f"{len(rows)}\n")
+            for r in rows:
+                f.write(f"{r}\n")
+
+    @staticmethod
+    def write_data_vertices_bin(path: str, vde_dim: int, pde_dim: int,
+                                labels, degrees, keys, x, nx, vde,
+                                group, label_group) -> None:
+        """GNN-PGE data_vertices.bin record layout
+        (GNN-PGE/src/main.cpp:179-194): per vertex
+        vid,label,degree (u32) key (f64) x,nx,vde (f64[vde_dim])
+        path_group,path_label_group (f64[2*pde_dim] interleaved lo,hi)."""
+        v = len(labels)
+        with open(path, "wb") as f:
+            f.write(np.uint32(v).tobytes())
+            for i in range(v):
+                f.write(np.array([i, labels[i], degrees[i]],
+                                 dtype=np.uint32).tobytes())
+                f.write(np.float64(keys[i]).tobytes())
+                f.write(np.asarray(x[i], dtype=np.float64).tobytes())
+                f.write(np.asarray(nx[i], dtype=np.float64).tobytes())
+                f.write(np.asarray(vde[i], dtype=np.float64).tobytes())
+                inter = np.empty(2 * pde_dim)
+                inter[0::2], inter[1::2] = group[i, 0], group[i, 1]
+                f.write(inter.tobytes())
+                inter[0::2], inter[1::2] = (label_group[i, 0],
+                                            label_group[i, 1])
+                f.write(inter.tobytes())
+
+    @staticmethod
+    def read_data_vertices_bin(path: str, vde_dim: int, pde_dim: int):
+        """Inverse of write_data_vertices_bin; returns dict of arrays."""
+        raw = open(path, "rb").read()
+        v = int(np.frombuffer(raw[:4], dtype=np.uint32)[0])
+        rec = 12 + 8 + vde_dim * 8 * 3 + pde_dim * 2 * 8 * 2
+        out = dict(labels=np.zeros(v, np.int32),
+                   degrees=np.zeros(v, np.int32),
+                   keys=np.zeros(v),
+                   x=np.zeros((v, vde_dim)), nx=np.zeros((v, vde_dim)),
+                   vde=np.zeros((v, vde_dim)),
+                   group=np.zeros((v, 2, pde_dim)),
+                   label_group=np.zeros((v, 2, pde_dim)))
+        off = 4
+        for _ in range(v):
+            b = raw[off:off + rec]
+            off += rec
+            vid, label, degree = np.frombuffer(b[:12], dtype=np.uint32)
+            vals = np.frombuffer(b[12:], dtype=np.float64)
+            out["labels"][vid] = label
+            out["degrees"][vid] = degree
+            out["keys"][vid] = vals[0]
+            d = vde_dim
+            out["x"][vid] = vals[1:1 + d]
+            out["nx"][vid] = vals[1 + d:1 + 2 * d]
+            out["vde"][vid] = vals[1 + 2 * d:1 + 3 * d]
+            pg = vals[1 + 3 * d:1 + 3 * d + 2 * pde_dim]
+            out["group"][vid, 0], out["group"][vid, 1] = pg[0::2], pg[1::2]
+            plg = vals[1 + 3 * d + 2 * pde_dim:]
+            out["label_group"][vid, 0] = plg[0::2]
+            out["label_group"][vid, 1] = plg[1::2]
+        return out

@@ -143,7 +143,7 @@ def measure() -> dict:
             spmm.LONG_ROWS = saved
 
     lay = ell.BinnedEllDevice.from_host(
-        ell.build_binned_ell(g.offsets, g.neighbors), device)
+        ell.build_binned_ell(g.offsets, g.neighbors, device=device), device)
     for d in (2, 128):
         h = torch.from_numpy(rng.rand(g.num_vertices, d).astype(np.float32)
                              ).to(device)
@@ -195,7 +195,7 @@ def sweep() -> None:
                           f"dealt={narrow} queue={queue}: {us:.1f} us",
                           flush=True)
     lay = ell.BinnedEllDevice.from_host(
-        ell.build_binned_ell(g.offsets, g.neighbors), device)
+        ell.build_binned_ell(g.offsets, g.neighbors, device=device), device)
     widest = ell.pack_shape
     for d in (2, 4, 8, 16, 32, 64, 128):
         h = torch.from_numpy(rng.rand(g.num_vertices, d).astype(np.float32)

@@ -21,9 +21,12 @@ CSR kernel on a CUDA device and its plain version on the CPU — and
     C[v, q] &= ∀ q' ∈ N(q): reach[v, q'] > 0
 
 per round, to a fixpoint or for ``iters`` rounds (pruning is monotone,
-so every prefix is sound).  A sum of at most max-degree ones is exact in
-f32 whatever the order of the adds, so ``reach > 0`` and the result are
-bit-equal to gnnpe_tpu's; the kernel adds in f32 and must keep doing so.
+so every prefix is sound).  With ``ell=`` (a ``HierarchicalEll`` of the
+data graph, ops/ell.py) the neighbour sum is ``ell.apply(C)`` instead:
+one kernel launch per level of the uniform-width layout.  A sum of at
+most max-degree ones is exact in f32 whatever the order of the adds, so
+``reach > 0`` and the result are bit-equal to gnnpe_tpu's; the kernels
+add in f32 and must keep doing so.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ __all__ = ["semijoin_prune"]
 
 def semijoin_prune(data_graph: CSRGraph, query_graph: CSRGraph,
                    candidates: List[np.ndarray], device, iters: int = 2,
-                   csr=None) -> List[np.ndarray]:
+                   csr=None, ell=None) -> List[np.ndarray]:
     """Candidate sets pruned by ``iters`` rounds of arc consistency on
     ``device`` (each round is sound; the fixpoint needs at most V, and
     2-3 bring almost all of the benefit).
@@ -50,11 +53,17 @@ def semijoin_prune(data_graph: CSRGraph, query_graph: CSRGraph,
     csr: the data graph's int32 (offsets, neighbors) already on
     ``device``, for a caller that prunes many queries over one graph;
     by default they are uploaded here.  Each round costs one kernel
-    launch and one small device-to-host read for the fixpoint test."""
+    launch and one small device-to-host read for the fixpoint test.
+    ell: a ``HierarchicalEll`` of the data graph (or one already ``on``
+    ``device``), reused across queries, whose ``apply`` is the neighbour
+    sum in place of the CSR kernel's; ``csr`` is then not used."""
     device = as_device(device)
-    if csr is None:
-        csr = to_device(data_graph, device)[:2]
-    offsets, neighbors = csr
+    if ell is not None:
+        agg = ell.apply
+    else:
+        offsets, neighbors = (to_device(data_graph, device)[:2]
+                              if csr is None else csr)
+        agg = lambda c: neighbor_sum(offsets, neighbors, c)
     v, nq = data_graph.num_vertices, query_graph.num_vertices
     # The 0/1 matrix is made on the device from the candidate ids, and
     # only the surviving (query vertex, data vertex) pairs come back.
@@ -71,7 +80,7 @@ def semijoin_prune(data_graph: CSRGraph, query_graph: CSRGraph,
         need[q, query_graph.vertex_neighbors(q)] = True
     free = ~torch.from_numpy(need).to(device)
     for _ in range(iters):
-        reach = neighbor_sum(offsets, neighbors, cur) > 0.0
+        reach = agg(cur) > 0.0
         ok = (reach[:, None, :] | free[None]).all(-1)
         nxt = cur * ok.to(cur.dtype)
         done = torch.equal(nxt, cur)

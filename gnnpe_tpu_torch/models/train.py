@@ -161,7 +161,8 @@ class TrainState:
 def _aggregate(graph: CSRGraph, aggregation: str, device):
     """The neighbour sum h ↦ A h for ``fit``: "segment" is the CSR
     kernel A1 (``NeighborSum``), "binned" the degree-binned layout on
-    kernel A2 with the permutes at the layer boundary."""
+    kernel A2 with the permutes at the layer boundary, its hubs priced
+    with ``device``'s own prices."""
     if aggregation == "segment":
         from gnnpe_tpu_torch.ops.spmm import NeighborSum
         offsets, neighbors, _, _ = to_device(graph, device)
@@ -170,7 +171,8 @@ def _aggregate(graph: CSRGraph, aggregation: str, device):
         from gnnpe_tpu_torch.ops.ell import (BinnedEllDevice,
                                              binned_aggregate,
                                              build_binned_ell)
-        lay = build_binned_ell(graph.offsets, graph.neighbors)
+        lay = build_binned_ell(graph.offsets, graph.neighbors,
+                               device=device)
         return binned_aggregate(BinnedEllDevice.from_host(lay, device))
     raise ValueError(f"aggregation must be 'segment' or 'binned', got "
                      f"{aggregation!r}")
@@ -194,7 +196,9 @@ def fit(model: PathGNN, graph: CSRGraph, paths: np.ndarray,
 
     aggregation: "segment" (CSR neighbour sum, kernel A1, forward and
     backward) or "binned" (the degree-binned layout, kernel A2, forward
-    and backward; the production choice at scale).
+    and backward; the production choice at scale), its hubs priced with
+    ``device``'s prices (ops/ell.py:_device_constants: measured on a
+    CUDA device).
     negatives=True adds the discriminative term over NLF-violating
     candidate pairs (sample_negative_pairs)."""
     device = as_device(device)

@@ -1,5 +1,14 @@
-"""Degree-binned ELL aggregation: scatter-free neighbour sums, forward
-and backward (counterpart of gnnpe_tpu/ops/ell.py's ``BinnedEll``).
+"""ELL aggregation: scatter-free neighbour sums, forward and backward
+(counterpart of gnnpe_tpu/ops/ell.py).
+
+The uniform-width layout (``build_ell``, ``HierarchicalEll``) chunks
+each vertex's adjacency into rows of K neighbours and folds the chunk
+rows back per vertex through one or more further tables; pads are -1.
+``HierarchicalEll.on(device)`` uploads it once.  On a CUDA tensor each
+level is one launch of the gather-sum kernel below: the level's input
+gets one zero row past its end and every pad points there, which adds
+exactly the 0.0 that the masked plain form adds for a pad.  On a CPU
+tensor each level is that masked plain form.
 
 The host layout (``build_binned_ell``, the ``BinnedEll`` tables) is the
 port's own copy of gnnpe_tpu's numpy builder.  ``BinnedEllDevice``
@@ -29,11 +38,14 @@ import torch
 
 from gnnpe_tpu_torch.kernels._build import pack_shape
 from gnnpe_tpu_torch.utils.device import as_device
+from gnnpe_tpu_torch.utils.device_probe import CPU_ROW, device_constants
 
-__all__ = ["BinnedEll", "BinnedEllDevice", "DEFAULT_WIDTHS", "HUB_PRICES",
+__all__ = ["BinnedEll", "BinnedEllDevice", "DEFAULT_WIDTHS", "EllLayout",
+           "HUB_PRICES", "HierarchicalEll", "HierarchicalEllDevice",
            "LAUNCHES", "LaunchPlan", "binned_aggregate", "build_binned_ell",
-           "gather_sum", "gather_sum_plain", "hub_product",
-           "symmetric_aggregate", "upload_table"]
+           "build_ell", "ell_neighbor_sum", "gather_sum", "gather_sum_plain",
+           "hub_costs", "hub_product", "symmetric_aggregate",
+           "upload_table"]
 
 LAUNCHES = 0
 
@@ -43,12 +55,20 @@ DEFAULT_WIDTHS = (4, 8, 16, 32, 64)
 _HUB_PRECISIONS = ("hi_lo", "bf16", "f32")
 
 # What a hub column is priced with: (memory bytes/s, matmul flop/s,
-# gather seconds/row).  gnnpe_tpu measures these with a JAX device probe
-# and falls back to its table's "cpu" row where JAX is missing, as on
-# the card's machine.  The port has no probe: it pins that row (copied
-# here), so it builds the same layout on every machine; a caller that
-# has measured its device passes ``hub_prices=``.
-HUB_PRICES = (50e9, 1e12, 2e-9)
+# gather seconds/row).  A layout built for a named device takes that
+# device's prices (``_device_constants``: measured in the run on a CUDA
+# device); one built with neither prices nor a device takes gnnpe_tpu's
+# "cpu" row, so a host build is the same on every machine.
+HUB_PRICES = CPU_ROW
+# What the hub product costs where it runs.  On a CUDA device
+# ``BinnedEllDevice`` keeps B as f32 (4 bytes a count), and having any hub
+# at all costs these passes over the [V, D] f32 output: each product's
+# result written (1 or 2), hi and lo added (read 2, write 1), and the hub
+# part added to the gathers' sum (read 2, write 1).  Anywhere else
+# gnnpe_tpu's model is kept (a count at 1 byte, no fixed cost), so host
+# and CPU layouts are gnnpe_tpu's.
+CUDA_HUB_ENTRY_BYTES = 4
+CUDA_HUB_OUTPUT_PASSES = {"hi_lo": 8, "bf16": 4, "f32": 4}
 
 # csrc/ell_gather_sum.cu: kMaxTables descriptors per launch, kThreads
 # threads per block (``_level_fn`` checks both against the built library).
@@ -100,23 +120,57 @@ class BinnedEll:
     hub_precision: str = "hi_lo"    # see class docstring
 
 
+def _device_constants(device) -> Tuple[float, float, float]:
+    """The hub prices of ``device`` (utils/device_probe.py): the "cpu"
+    row on the CPU, measured once per process on a CUDA device."""
+    return device_constants(device)
+
+
+def hub_prices_for(hub_prices, device) -> Tuple[float, float, float]:
+    """``hub_prices`` where given, else ``device``'s prices, else the
+    "cpu" row."""
+    if hub_prices is not None:
+        return tuple(hub_prices)
+    return HUB_PRICES if device is None else _device_constants(device)
+
+
+def hub_costs(device, precision: str) -> Tuple[int, int]:
+    """(bytes a hub count costs, passes the hub product makes over the
+    f32 output) on ``device``: ``CUDA_HUB_ENTRY_BYTES`` and
+    ``CUDA_HUB_OUTPUT_PASSES`` on a CUDA device, gnnpe_tpu's (1, 0)
+    elsewhere."""
+    if device is not None and torch.device(device).type == "cuda":
+        return CUDA_HUB_ENTRY_BYTES, CUDA_HUB_OUTPUT_PASSES[precision]
+    return 1, 0
+
+
 def _select_hubs(num_v: int, neighbors: np.ndarray, feature_dim: int,
-                 max_hubs: int, hub_mem_budget: int, hub_prices):
+                 max_hubs: int, hub_mem_budget: int, hub_prices,
+                 costs: Tuple[int, int] = (1, 0)):
     """Pick hub sources worth routing through the dense product.
 
     Include vertex i (by occurrence count in ``neighbors``) while the
-    gather time its arcs would cost (per-row cost from the device
-    calibration table) exceeds the marginal cost of one more B column:
-    V int8 bytes of HBM traffic plus two bf16 [V,1]x[1,D] matmul
-    slivers.  The hub count is additionally capped so the dense B
-    matrix fits ``hub_mem_budget`` bytes (int8 on device)."""
+    gather time its arcs would cost (per-row cost from the prices)
+    exceeds the marginal cost of one more B column: V counts of
+    ``costs[0]`` bytes each read from memory plus two [V,1]x[1,D] matmul
+    slivers (the hi/lo products) at the prices' matmul rate.  The hub
+    count is additionally capped so the dense B matrix fits
+    ``hub_mem_budget`` bytes at ``costs[0]`` a count.  The hubs are then
+    kept only if the gathers they save outweigh their columns and the
+    ``costs[1]`` passes over the f32 [V, D] output that any hub costs."""
     bw, flops, gather_row_s = hub_prices
+    entry_bytes, output_passes = costs
     occ = np.bincount(neighbors, minlength=num_v).astype(np.int64)
-    col_cost_s = num_v / bw + 4.0 * num_v * feature_dim / flops
+    col_cost_s = entry_bytes * num_v / bw + 4.0 * num_v * feature_dim / flops
     thresh = max(4.0, col_cost_s / gather_row_s)
     order = np.argsort(-occ, kind="stable")
     n = int((occ[order] > thresh).sum())
-    n = min(n, max_hubs, num_v, max(0, hub_mem_budget // max(1, num_v)))
+    n = min(n, max_hubs, num_v,
+            max(0, hub_mem_budget // max(1, entry_bytes * num_v)))
+    if n and output_passes:
+        saved_s = gather_row_s * occ[order[:n]].sum() - n * col_cost_s
+        if saved_s <= output_passes * 4.0 * num_v * feature_dim / bw:
+            n = 0
     return order[:n]
 
 
@@ -133,18 +187,19 @@ def build_binned_ell(offsets: np.ndarray, neighbors: np.ndarray,
                      max_hubs: int = 2048,
                      hub_precision: str = "hi_lo",
                      hub_mem_budget: int = 256 << 20,
-                     hub_prices: Tuple[float, float, float] = HUB_PRICES
-                     ) -> BinnedEll:
+                     hub_prices: Optional[Tuple[float, float, float]] = None,
+                     device=None) -> BinnedEll:
     """Build the degree-binned relabeled layout (host, O(E log V)).
 
     With ``hub_matmul`` the top-occurrence sources are lifted out of
     the gather tables into a dense count matrix contracted as a matrix
     product (see BinnedEll docstring), priced by ``hub_prices`` =
-    (memory bytes/s, matmul flop/s, gather seconds/row); the ELL tables are then built over the
+    (memory bytes/s, matmul flop/s, gather seconds/row), else by
+    ``device``'s prices; the ELL tables are then built over the
     residual adjacency.  ``feature_dim_hint`` only tunes the hub-count
     economics; any D works at apply time.  ``hub_mem_budget`` caps the
-    dense B matrix (bytes, int8) so power-law graphs at V≈1e6+ cannot
-    OOM the build.  When any hub multiplicity exceeds 256, a caller-
+    dense B matrix (bytes at ``hub_costs(device, ...)[0]`` a count) so
+    power-law graphs at V≈1e6+ cannot OOM the build.  When any hub multiplicity exceeds 256, a caller-
     supplied bf16 ``hub_precision`` is auto-upgraded to "f32" (bf16
     integer rounding starts at 257); pass hub_matmul=False to opt out.
     """
@@ -161,7 +216,9 @@ def build_binned_ell(offsets: np.ndarray, neighbors: np.ndarray,
     num_hub_arcs = 0
     if hub_matmul and num_v and len(neighbors):
         hubs = _select_hubs(num_v, neighbors, feature_dim_hint,
-                            max_hubs, hub_mem_budget, hub_prices)
+                            max_hubs, hub_mem_budget,
+                            hub_prices_for(hub_prices, device),
+                            hub_costs(device, hub_precision))
         if len(hubs):
             nh = len(hubs)
             hub_id = np.full(num_v, -1, dtype=np.int64)
@@ -762,3 +819,218 @@ def binned_aggregate(layout: BinnedEllDevice):
     return lambda h: _Permute.apply(
         inner(_Permute.apply(h, layout.perm, layout.rank)),
         layout.rank, layout.perm)
+
+
+# ---- the uniform-width layout ----------------------------------------------
+# ``build_ell`` is the port's own copy of gnnpe_tpu's.
+
+@dataclass
+class EllLayout:
+    """One gather-sum level: out[i] = Σ_k in[tbl[i,k]] * (tbl[i,k]>=0).
+    Index -1 marks padding."""
+    tbl: np.ndarray        # int32[N, K]
+
+    @property
+    def num_rows(self) -> int:
+        return self.tbl.shape[0]
+
+
+@dataclass
+class HierarchicalEll:
+    """Uniform-width ELL: level 1 sums each chunk of ≤K neighbours of a
+    vertex into one row; each further level sums a vertex's rows of the
+    level before through a table of ``level2_width`` slots (recursively
+    while a vertex has more rows than that); the last level has one row
+    per vertex."""
+    levels: List[EllLayout]
+    num_vertices: int
+    num_slots: int          # total gather slots (padding overhead metric)
+    slot_arc: np.ndarray = None   # int32[level-1 slots]: CSR arc index
+    #                               per slot, -1 pad (ops/sddmm.py)
+
+    def __post_init__(self):
+        self._on: Dict[torch.device, "HierarchicalEllDevice"] = {}
+
+    def on(self, device) -> "HierarchicalEllDevice":
+        """This layout on ``device``, uploaded at the first call."""
+        device = as_device(device)
+        if device not in self._on:
+            self._on[device] = HierarchicalEllDevice.from_host(self, device)
+        return self._on[device]
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """Aggregated neighbour features [V, D] of ``x`` [V, D]."""
+        return self.on(x.device).apply(x)
+
+
+def build_ell(offsets: np.ndarray, neighbors: np.ndarray,
+              width: int = 8, level2_width: int = 8) -> HierarchicalEll:
+    """Build the hierarchical layout from CSR (host, O(E))."""
+    num_v = len(offsets) - 1
+    deg = np.diff(offsets).astype(np.int64)
+
+    # ---- level 1: chunks of ≤width neighbors -------------------------
+    chunks_per_v = np.maximum(-(-deg // width), 1)
+    c_of_v_end = np.cumsum(chunks_per_v)
+    c_of_v_start = c_of_v_end - chunks_per_v
+    num_chunks = int(c_of_v_end[-1])
+
+    tbl1 = np.full((num_chunks, width), -1, dtype=np.int32)
+    # Chunk row r of vertex v covers neighbors [offsets[v]+ (r-start)*W ...]
+    arc_v = np.repeat(np.arange(num_v), deg)
+    arc_pos = np.arange(len(neighbors)) - np.repeat(offsets[:-1], deg)
+    chunk_row = c_of_v_start[arc_v] + arc_pos // width
+    slot = arc_pos % width
+    tbl1[chunk_row, slot] = neighbors
+    slot_arc = np.full(tbl1.size, -1, dtype=np.int32)
+    slot_arc[chunk_row * width + slot] = np.arange(len(neighbors))
+
+    levels = [EllLayout(tbl1)]
+    slots = tbl1.size
+
+    # ---- level 2+: fold chunk rows per vertex ------------------------
+    cur_counts = chunks_per_v
+    cur_start = c_of_v_start
+    while True:
+        kmax = int(cur_counts.max()) if num_v else 1
+        if kmax <= level2_width:
+            tbl = np.full((num_v, level2_width), -1, dtype=np.int32)
+            item_v = np.repeat(np.arange(num_v), cur_counts)
+            pos = (np.arange(int(cur_counts.sum()))
+                   - np.repeat(cur_start, cur_counts))
+            tbl[item_v, pos] = np.arange(int(cur_counts.sum()))
+            levels.append(EllLayout(tbl))
+            slots += tbl.size
+            break
+        # Another chunking level over the chunk rows.
+        n_items = int(cur_counts.sum())
+        sub = np.maximum(-(-cur_counts // level2_width), 1)
+        sub_end = np.cumsum(sub)
+        sub_start = sub_end - sub
+        n_sub = int(sub_end[-1])
+        tbl = np.full((n_sub, level2_width), -1, dtype=np.int32)
+        item_v = np.repeat(np.arange(num_v), cur_counts)
+        pos = np.arange(n_items) - np.repeat(cur_start, cur_counts)
+        row = sub_start[item_v] + pos // level2_width
+        tbl[row, pos % level2_width] = np.arange(n_items)
+        levels.append(EllLayout(tbl))
+        slots += tbl.size
+        cur_counts = sub
+        cur_start = sub_start
+
+    return HierarchicalEll(levels=levels, num_vertices=num_v,
+                           num_slots=int(slots), slot_arc=slot_arc)
+
+
+def masked_level_plain(h: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
+    """One level in the masked plain form over a kernel table (pads at
+    ``len(h)``): gather ``h`` at each slot, 0.0 at a pad, slots added in
+    ascending order from 0.0 — gnnpe_tpu's masked sum of its -1 pads."""
+    rows = h.shape[0]
+    acc = torch.zeros((tbl.shape[0],) + tuple(h.shape[1:]), dtype=h.dtype,
+                      device=h.device)
+    zero = torch.zeros((), dtype=h.dtype, device=h.device)
+    for k in range(tbl.shape[1]):
+        col = tbl[:, k]
+        mask = (col < rows).reshape((-1,) + (1,) * (h.dim() - 1))
+        acc += torch.where(mask, h[col.clamp(max=max(rows - 1, 0))], zero)
+    return acc
+
+
+@dataclass
+class HierarchicalEllDevice:
+    """A ``HierarchicalEll`` on one device.  Per level, ``tables`` holds
+    the kernel's table (int32), whose -1 pads point at row ``src_rows``
+    of the level's input — the zero row the kernel route appends, and
+    the mask of the masked plain form (``tbl < src_rows``).
+    ``slot_arc`` is the layout's (int64), where it has one."""
+    tables: List[torch.Tensor]
+    src_rows: List[int]
+    num_vertices: int
+    num_slots: int
+    slot_arc: Optional[torch.Tensor] = None
+
+    @classmethod
+    def from_host(cls, layout: HierarchicalEll,
+                  device) -> "HierarchicalEllDevice":
+        """Upload ``layout`` once; checks every table against the rows
+        it gathers from and that the last level has a row per vertex."""
+        device = as_device(device)
+        tables, src_rows = [], []
+        rows = layout.num_vertices
+        for lvl in layout.levels:
+            tbl = np.asarray(lvl.tbl)
+            if tbl.ndim != 2:
+                raise ValueError(f"a level's table must be 2-D, got "
+                                 f"{tbl.shape}")
+            if tbl.size and (tbl.min() < -1 or tbl.max() >= rows):
+                raise ValueError(f"table indices outside [-1, {rows})")
+            tables.append(torch.from_numpy(np.where(
+                tbl < 0, rows, tbl).astype(np.int32)).to(device))
+            src_rows.append(rows)
+            rows = tbl.shape[0]
+        if rows != layout.num_vertices:
+            raise ValueError(f"the last level has {rows} rows for "
+                             f"{layout.num_vertices} vertices")
+        slot_arc = (None if layout.slot_arc is None else torch.from_numpy(
+            np.asarray(layout.slot_arc, np.int64)).to(device))
+        return cls(tables=tables, src_rows=src_rows,
+                   num_vertices=layout.num_vertices,
+                   num_slots=layout.num_slots, slot_arc=slot_arc)
+
+    @property
+    def launches_per_apply(self) -> int:
+        """Kernel launches of one ``apply`` on a CUDA tensor."""
+        return sum(1 for t in self.tables if t.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.tables[0].device
+
+    def _check(self, x: torch.Tensor, rows: int) -> None:
+        if x.dim() != 2 or x.shape[0] != rows:
+            raise ValueError(f"x must be [{rows}, D], got {tuple(x.shape)}")
+        if x.device != self.device:
+            raise ValueError(f"x is on {x.device}, the layout on "
+                             f"{self.device}")
+
+    def walk_plain(self, h: torch.Tensor, start: int = 0) -> torch.Tensor:
+        """Levels ``start``... in the masked plain form, on any device."""
+        self._check(h, self.src_rows[start])
+        for tbl in self.tables[start:]:
+            h = masked_level_plain(h, tbl)
+        return h
+
+    def walk(self, h: torch.Tensor, start: int = 0) -> torch.Tensor:
+        """Levels ``start``... from ``h``: one launch of the gather-sum
+        kernel per level on a CUDA tensor (f32), the masked plain form on
+        a CPU tensor; any other device raises."""
+        self._check(h, self.src_rows[start])
+        if h.device.type == "cpu":
+            return self.walk_plain(h, start)
+        if h.device.type != "cuda":
+            raise ValueError(f"no gather_sum kernel for device {h.device}")
+        d = h.shape[1]
+        buf = torch.empty((h.shape[0] + 1, d), dtype=h.dtype, device=h.device)
+        buf[:-1] = h
+        buf[-1] = 0.0
+        for tbl in self.tables[start:]:
+            out = torch.empty((tbl.shape[0] + 1, d), dtype=h.dtype,
+                              device=h.device)
+            out[-1] = 0.0
+            gather_sum(buf, tbl, None, out=out[:-1])
+            buf = out
+        return buf[:-1]
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """Aggregated neighbour features [V, D] of ``x`` [V, D]."""
+        return self.walk(x.contiguous())
+
+    def apply_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """``apply`` in the masked plain form, on any device."""
+        return self.walk_plain(x)
+
+
+def ell_neighbor_sum(layout, x: torch.Tensor) -> torch.Tensor:
+    """``layout.apply(x)`` (a ``HierarchicalEll`` or one ``on`` a device)."""
+    return layout.apply(x)

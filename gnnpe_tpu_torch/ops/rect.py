@@ -34,10 +34,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gnnpe_tpu_torch.ops.ell import (DEFAULT_WIDTHS, HUB_PRICES,
-                                     _HUB_PRECISIONS, LaunchPlan, _padcnt,
-                                     _select_hubs, gather_sum_plain,
-                                     hub_product, upload_table)
+from gnnpe_tpu_torch.ops.ell import (DEFAULT_WIDTHS, _HUB_PRECISIONS,
+                                     LaunchPlan, _padcnt, _select_hubs,
+                                     gather_sum_plain, hub_costs,
+                                     hub_prices_for, hub_product,
+                                     upload_table)
 from gnnpe_tpu_torch.utils.device import as_device
 
 _FOLD_W = 8     # head chunk-fold width (matches BinnedEll)
@@ -224,13 +225,13 @@ def build_binned_rect(dst_offsets: np.ndarray, src_ids: np.ndarray,
                       max_hubs: int = 2048,
                       hub_precision: str = "hi_lo",
                       hub_mem_budget: int = 256 << 20,
-                      hub_prices: Tuple[float, float, float] = HUB_PRICES
-                      ) -> RectBinned:
+                      hub_prices: Optional[Tuple[float, float, float]] = None,
+                      device=None) -> RectBinned:
     """Build the rectangular layout from a dst-major CSR arc list
     (host, O(arcs)).  ``dst_offsets``: int[num_dst+1]; ``src_ids``:
     indices into the caller's source buffer ``[0, num_src_rows)``.
-    ``hub_prices``: what a hub column is priced with, as in
-    ``build_binned_ell``."""
+    ``hub_prices`` and ``device``: what a hub column is priced with, as
+    in ``build_binned_ell``."""
     if tuple(sorted(set(widths))) != tuple(widths):
         raise ValueError(f"widths must be strictly increasing: {widths}")
     if hub_precision not in _HUB_PRECISIONS:
@@ -245,10 +246,13 @@ def build_binned_rect(dst_offsets: np.ndarray, src_ids: np.ndarray,
     num_hub_arcs = 0
     hubs = np.zeros(0, np.int64)
     if hub_matmul and num_dst and num_arcs:
+        costs = hub_costs(device, hub_precision)
         hubs = _select_hubs(num_src_rows, src_ids, feature_dim_hint,
-                            max_hubs, hub_mem_budget, hub_prices)
+                            max_hubs, hub_mem_budget,
+                            hub_prices_for(hub_prices, device), costs)
         # B columns cost scales with num_dst rows, not src rows.
-        hubs = hubs[:max(0, hub_mem_budget // max(1, num_dst))] \
+        hubs = hubs[:max(0, hub_mem_budget
+                         // max(1, costs[0] * num_dst))] \
             if len(hubs) else hubs
     if len(hubs):
         nh = len(hubs)

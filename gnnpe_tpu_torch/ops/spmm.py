@@ -7,6 +7,9 @@ for a CPU tensor; any other device raises.  Both add strictly left to
 right in ascending neighbour order from 0.0, as the host reference
 ``neighbor_sum_np`` does, so their f64 results are bit-equal to it.
 
+``spmm_csr`` is gnnpe_tpu's name for the same CSR sum;
+``segment_spmm`` is its weighted COO sum, in plain PyTorch.
+
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
 """
@@ -219,3 +222,29 @@ class CsrSum(torch.autograd.Function):
         pair = ctx.pair
         return neighbor_sum(pair.t_offsets, pair.t_neighbors,
                             g.contiguous(), rectangular=True), None
+
+
+def spmm_csr(offsets, neighbors, x: torch.Tensor) -> torch.Tensor:
+    """gnnpe_tpu's name for the CSR neighbour sum: ``neighbor_sum`` (kernel
+    A1 on a CUDA tensor), with ``offsets`` and ``neighbors`` taken as
+    int32 tensors on ``x``'s device (numpy or tensors of any int type)."""
+    as_i32 = lambda a: torch.as_tensor(a, dtype=torch.int32,
+                                       device=x.device).contiguous()
+    return neighbor_sum(as_i32(offsets), as_i32(neighbors), x.contiguous())
+
+
+def segment_spmm(src, dst, values, x: torch.Tensor,
+                 num_vertices: int) -> torch.Tensor:
+    """Weighted COO SpMM: ``out[v] = Σ_e values[e] · x[src[e]]`` over the
+    arcs with ``dst[e] == v`` (``values`` a scalar or one per arc), by
+    ``index_add_``.  Its order of adds is not fixed on a CUDA device, so
+    it is held within tolerance, not bit for bit.  gnnpe_tpu's COO
+    ``neighbor_sum(src, dst, x, V)`` is ``segment_spmm(src, dst, 1, x,
+    V)`` here (the port's ``neighbor_sum`` is the CSR kernel)."""
+    src = torch.as_tensor(src, device=x.device).long()
+    dst = torch.as_tensor(dst, device=x.device).long()
+    w = torch.as_tensor(values, dtype=x.dtype, device=x.device)
+    gathered = x[src] * (w[:, None] if w.dim() else w)
+    out = torch.zeros((num_vertices,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    return out.index_add_(0, dst, gathered)

@@ -38,12 +38,12 @@ Exactness: equals the dense aggregation row for row.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from gnnpe_tpu_torch.ops.ell import DEFAULT_WIDTHS, HUB_PRICES
+from gnnpe_tpu_torch.ops.ell import DEFAULT_WIDTHS
 from gnnpe_tpu_torch.ops.rect import (RectBinned, build_binned_rect,
                                       build_transposed, pad_rect,
                                       rect_aggregate, rect_pad_spec)
@@ -140,8 +140,12 @@ class BinnedHaloPlan:
               widths: Tuple[int, ...] = DEFAULT_WIDTHS,
               hub_matmul: bool = True,
               feature_dim_hint: int = 128,
-              hub_prices: Tuple[float, float, float] = HUB_PRICES
-              ) -> "BinnedHaloPlan":
+              hub_prices: Optional[Tuple[float, float, float]] = None,
+              device=None) -> "BinnedHaloPlan":
+        """The plan for ``num_shards`` shards of ``membership``; hubs are
+        priced with ``hub_prices``, else with the prices of ``device``
+        (the device the plan will run on), else with the "cpu" row
+        (ops/ell.py:hub_prices_for)."""
         n = num_shards
         v = len(offsets) - 1
         offsets = np.asarray(offsets, dtype=np.int64)
@@ -203,7 +207,7 @@ class BinnedHaloPlan:
 
         rect_args = dict(widths=widths, hub_matmul=hub_matmul,
                          feature_dim_hint=feature_dim_hint,
-                         hub_prices=hub_prices)
+                         hub_prices=hub_prices, device=device)
         locals_ = [build_binned_rect(o, s, own_pad, **rect_args)
                    for o, s in local_csrs]
         halos = [build_binned_rect(o, s, n * halo_pad, **rect_args)

@@ -103,8 +103,9 @@ def dryrun_rank(rank: int, world: int, device: str,
     x = np.random.RandomState(1).rand(g.num_vertices, 8).astype(np.float32)
     want = neighbor_sum_np(g.offsets, g.neighbors, x.astype(np.float64))
     plans = {}
-    for cls in (HaloPlan, BinnedHaloPlan):
-        plan = plans[cls] = cls.build(g.offsets, g.neighbors, membership, n)
+    for cls, kw in ((HaloPlan, {}), (BinnedHaloPlan, dict(device=device))):
+        plan = plans[cls] = cls.build(g.offsets, g.neighbors, membership, n,
+                                      **kw)
         agg = plan.make_aggregate(mesh1, device)
         own = agg(torch.from_numpy(plan.shard_features(x)[rank]).to(device))
         got = _gather_blocks(own, mesh1)

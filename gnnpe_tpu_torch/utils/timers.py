@@ -1,8 +1,9 @@
 """Stage timing for the engine: named wall-clock stages.
 
 On a CUDA device each stage edge synchronises the device first, so a
-stage's time covers the device work it queued.  (gnnpe_tpu's timer
-opens a jax.profiler annotation per stage and so imports JAX.)
+stage's time covers the device work it queued.  Every stage also opens
+``utils/profiling.annotate`` (as gnnpe_tpu's timer does), so the stages
+appear by name in a trace whenever one is being captured.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import time
 from typing import Dict
 
 import torch
+
+from gnnpe_tpu_torch.utils.profiling import annotate
 
 
 class StageTimer:
@@ -29,8 +32,17 @@ class StageTimer:
         self._sync()
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(name, self._device if self._cuda else None):
+                yield
+                self._sync()
         finally:
-            self._sync()
             dt = (time.perf_counter() - t0) * 1e3
             self.times_ms[name] = self.times_ms.get(name, 0.0) + dt
+
+    @property
+    def total_ms(self) -> float:
+        return sum(self.times_ms.values())
+
+    def __repr__(self):
+        parts = ", ".join(f"{k}={v:.2f}ms" for k, v in self.times_ms.items())
+        return f"StageTimer({parts})"

@@ -345,6 +345,24 @@ assert st.step == 3 and embedder.model_embedder(model, "cpu")(q).vde.shape
 # The multi-device layer on two gloo ranks (each rank checks itself too).
 from gnnpe_tpu_torch.parallel.dryrun import dryrun_multichip
 dryrun_multichip(2, "cpu", "cpu")
+# The ladder, the uniform ELL and attention, intersect, the probe and a
+# trace.
+from gnnpe_tpu_torch.frontends.ladder import run_rung
+from gnnpe_tpu_torch.ops import intersect, sddmm
+from gnnpe_tpu_torch.utils import device_probe, profiling
+rows = run_rung("yeast", queries=2, device="cpu")
+assert [r["spot_verified"] for r in rows] == [True, True]
+lay = ell.build_ell(g.offsets, g.neighbors)
+x = torch.rand(g.num_vertices, 4)
+out = sddmm.attention_aggregate(lay, g.neighbors, sddmm.arc_endpoints(
+    g.offsets), x, x, x)
+assert torch.isfinite(out).all() and lay.apply(x).shape == x.shape
+bits = intersect.bitset_from_ids(np.arange(0, 90, 3), 100)
+assert int(intersect.bitset_count(bits)) == 30
+assert device_probe.device_constants("cpu") == ell.HUB_PRICES
+with profiling.trace(sys.argv[1] + ".trace", "cpu") as prof:
+    pge.online(q)
+assert os.path.exists(prof.trace_path)
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "gnnpe_tpu"))
 assert not foreign, foreign

@@ -521,3 +521,80 @@ def test_path_group_keys_and_er_graph():
     a, b = both("io.datasets", "er_graph", lambda f, s: f(300, 900, 5, seed=2))
     for name in ("offsets", "neighbors", "labels"):
         same(getattr(a, name), getattr(b, name))
+
+
+# ---- 11. the reference's wire formats, partition quality, graph meta -----------
+
+def test_reference_wire_format_readers_and_writers(tmp_path):
+    stores = {s: mod(s, "io.artifacts").ArtifactStore(str(tmp_path / s))
+              for s in SIDES}
+    rng = np.random.RandomState(2)
+    paths = rng.randint(0, 90, (25, 3)).astype(np.int32)
+    rows = rng.randint(0, 25, 11)
+    files = {}
+    for s in SIDES:
+        stores[s].write_all_paths(str(tmp_path / f"{s}.paths"), paths)
+        stores[s].write_partition_paths(str(tmp_path / f"{s}.part"), rows)
+        files[s] = (tmp_path / f"{s}.part").read_bytes()
+    assert files[REF] == files[PORT]
+    back = [stores[s].read_all_paths(str(tmp_path / f"{o}.paths"))
+            for s, o in ((REF, PORT), (PORT, REF))]
+    same(*back)
+    assert np.array_equal(back[1], paths)
+    empty = tmp_path / "empty.paths"
+    empty.write_text("0\n")
+    same(*[stores[s].read_all_paths(str(empty)) for s in SIDES])
+
+    v, vde_dim, pde_dim = 17, 2, 4
+    arrays = dict(labels=rng.randint(0, 5, v), degrees=rng.randint(0, 9, v),
+                  keys=rng.rand(v), x=rng.rand(v, vde_dim),
+                  nx=rng.rand(v, vde_dim), vde=rng.rand(v, vde_dim),
+                  group=rng.rand(v, 2, pde_dim),
+                  label_group=rng.rand(v, 2, pde_dim))
+    for s in SIDES:
+        stores[s].write_data_vertices_bin(str(tmp_path / f"{s}.bin"), vde_dim,
+                                          pde_dim, **arrays)
+    assert (tmp_path / f"{REF}.bin").read_bytes() == \
+        (tmp_path / f"{PORT}.bin").read_bytes()
+    got = [stores[s].read_data_vertices_bin(str(tmp_path / f"{s}.bin"),
+                                            vde_dim, pde_dim) for s in SIDES]
+    assert sorted(got[0]) == sorted(got[1])
+    for k in got[0]:
+        same(got[0][k], got[1][k])
+    same(got[1]["group"], arrays["group"])
+
+
+def test_edge_cut_and_membership_reader(tmp_path):
+    g = graphs(seed=16)
+    mem = np.random.RandomState(3).randint(0, 4, g[REF].num_vertices)
+    same(*both("graph.partition", "edge_cut", lambda f, s: f(g[s], mem)))
+    for s in SIDES:
+        mod(s, "graph.partition").write_membership(
+            str(tmp_path / f"{s}.txt"), g[s], mem)
+    read = both("graph.partition", "read_membership",
+                lambda f, s: f(str(tmp_path / f"{s}.txt"),
+                               g[s].num_vertices))
+    same(*read)
+    same(read[1][1], mem.astype(np.int32))
+
+
+def test_graph_meta_and_networkx_loader(tmp_path):
+    g = graphs(seed=17)
+    assert g[REF].meta() == g[PORT].meta()
+    nx = pytest.importorskip("networkx")
+    import gzip
+    import pickle
+    v, pairs, labels = _edges(seed=17)
+    h = nx.Graph()
+    h.add_nodes_from((i, {"label": int(labels[i])}) for i in range(v))
+    h.add_edges_from(map(tuple, pairs))
+    raw, packed = tmp_path / "raw.gpickle.gz", tmp_path / "packed.gpickle"
+    raw.write_bytes(pickle.dumps(h))           # a raw pickle, .gz name
+    with gzip.open(packed, "wb") as f:
+        pickle.dump(h, f)
+    for path in (raw, packed):
+        a, b = both("graph.csr", "CSRGraph",
+                    lambda c, s: c.from_networkx_gpickle(str(path)))
+        for name in ("offsets", "neighbors", "labels"):
+            same(getattr(a, name), getattr(b, name))
+        same(b.neighbors, g[PORT].neighbors)
