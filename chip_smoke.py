@@ -149,6 +149,16 @@
    plan plus the hub product — bit-equal to its plain version and within
    the hi/lo tolerance (2e-3 of max(|sum|, 1)) of A1's sum at f32 D=2
    and D=128, timed as in phase 8.
+15. Bench phase (after the probe): the port's aggregation benchmark
+   (``gnnpe_tpu_torch/bench.py``) at the root bench's size (100,000
+   vertices, 800,000 arcs, f32 D=128).  One aggregation of each of its
+   four implementations (binned, uniform ELL, 1-shard binned halo, flat
+   CSR) within rtol 1e-5 / atol 1e-6 of ``neighbor_sum_np`` in f64; both
+   kernels at those shapes bit-equal to their plain versions and timed
+   as in phase 3; ``bench_aggregation`` of each (the main path: every
+   step's A1 and A2 launches as its plan says, the share of the bound
+   finite); ``python -m gnnpe_tpu_torch.bench --device cuda --skip-halo``
+   in a subprocess, whose last line must carry the root bench's keys.
 
 The card's f64 data-graph VDE must equal the port's numpy
 ``gen_vde_host``.  Every query's candidates must equal the flat f64 host
@@ -158,8 +168,9 @@ every answer count must equal native refinement on
 those candidates; the table and device phases share the oracle of the
 phase before them.  Each kernel's launch count over the main path of
 the phases that run it (A1: PE, PE table, PE streamed, PGE, PGE device,
-both pre-verify runs, multi-device, ladder and train; A2: multi-device,
-train and the uniform-ELL pre-verify and attention) must be > 0, and
+both pre-verify runs, multi-device, ladder, train and bench; A2:
+multi-device, train, the uniform-ELL pre-verify and attention, and
+bench) must be > 0, and
 the index tensors must live on the card.
 At the end neither ``jax`` nor any module of ``gnnpe_tpu`` may have been
 imported.  Any failure exits non-zero.  The full record is printed as one
@@ -255,6 +266,14 @@ def cold_ms(fn, iters: int = 20) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def _bag(buf, tbl, padcnt, out):
+    """The library's gather-sum of one table for ``LaunchPlan.walk``:
+    ``embedding_bag`` sums each table row's bag, with no pad
+    correction."""
+    import torch.nn.functional as F
+    out.copy_(F.embedding_bag(tbl, buf, mode="sum"))
 
 
 def _measure(plain_fn, kern, library_fn, bytes_moved, operations,
@@ -1054,7 +1073,6 @@ def ell_phase(g, device, record) -> dict:
     gather_sum_plain, and the two autograd backwards; returns the f32
     rows of the kernels record (D=2 is the trainer's shape)."""
     import torch
-    import torch.nn.functional as F
     from gnnpe_tpu_torch.graph.csr import to_device
     from gnnpe_tpu_torch.ops import ell, spmm
     t0 = time.perf_counter()
@@ -1070,9 +1088,6 @@ def ell_phase(g, device, record) -> dict:
     check(lay.launches_per_apply == len(lay.plan.levels) < len(tables),
           "the dblp layout's plan does not launch once per level")
 
-    def bag(buf, tbl, padcnt, out):
-        # embedding_bag sums each table row's bag; no pad correction.
-        out.copy_(F.embedding_bag(tbl, buf, mode="sum"))
     print("ell layout: " + json.dumps(record["ell_layout"]))
     rng = np.random.RandomState(1)
     rows = {}
@@ -1095,7 +1110,7 @@ def ell_phase(g, device, record) -> dict:
         rows[name] = dict(max_abs_err=err, **_measure(
             lambda: lay.apply_perm(h, gather=ell.gather_sum_plain),
             lambda: lay.apply_perm(h),
-            lambda: lay.apply_perm(h, gather=bag),
+            lambda: lay.apply_perm(h, gather=_bag),
             bytes_moved=moved, operations=lay.num_slots * d,
             bytes_gathered=lay.num_slots * d * 4))
         _print_turns(f"ell_gather_sum apply_perm {name} "
@@ -1142,7 +1157,6 @@ def rect_kernel_rows(hplan, bplan, device, record) -> tuple:
     version and timed beside its library call; returns (A1 rows, A2
     rows) for the kernels record."""
     import torch
-    import torch.nn.functional as F
     from gnnpe_tpu_torch.ops import ell, spmm
     pair = hplan.local_pair(0, device)
     n_ext = hplan.own_pad + hplan.num_shards * hplan.halo_pad
@@ -1158,9 +1172,6 @@ def rect_kernel_rows(hplan, bplan, device, record) -> tuple:
                 halo=dict(source_rows=halo.num_src_rows,
                           output_rows=halo.num_out,
                           launches=halo.launches_per_apply), slots=slots))
-
-    def bag(buf, tbl, padcnt, out):
-        out.copy_(F.embedding_bag(tbl, buf, mode="sum"))
 
     rng = np.random.RandomState(4)
     a1_rows, a2_rows = {}, {}
@@ -1207,7 +1218,7 @@ def rect_kernel_rows(hplan, bplan, device, record) -> tuple:
               f"ell_gather_sum {name} differs from its plain version (max "
               f"abs err {err})")
         a2_rows[name] = dict(max_abs_err=err, **_measure(
-            lambda: both(ell.gather_sum_plain), both, lambda: both(bag),
+            lambda: both(ell.gather_sum_plain), both, lambda: both(_bag),
             bytes_moved=_plan_bytes(local, d) + _plan_bytes(halo, d),
             operations=slots * d, bytes_gathered=slots * d * 4))
         _print_turns(f"ell_gather_sum {name} (local + halo group, "
@@ -1750,7 +1761,6 @@ def probe_phase(device, smi, record) -> dict:
     the hi/lo tolerance at f32 D=2 and D=128, timed as the A2 phase times
     it.  Returns A2's rows."""
     import torch
-    import torch.nn.functional as F
     from gnnpe_tpu_torch.graph.csr import to_device
     from gnnpe_tpu_torch.io.datasets import load_dataset
     from gnnpe_tpu_torch.ops import ell, spmm
@@ -1849,8 +1859,6 @@ def probe_phase(device, smi, record) -> dict:
     rec["launches_per_apply"] = lay.launches_per_apply
     nh, v = len(host.hub_rows), g.num_vertices
 
-    def bag(buf, tbl, padcnt, out):
-        out.copy_(F.embedding_bag(tbl, buf, mode="sum"))
     rows = {}
     for d, x in xs.items():
         h = lay.permute(x)
@@ -1873,7 +1881,7 @@ def probe_phase(device, smi, record) -> dict:
             2 if lay.hub_precision == "hi_lo" else 1)
         rows[name] = dict(max_abs_err=err, rel_err_vs_a1=rel, **_measure(
             lambda: lay.apply_perm(h, gather=ell.gather_sum_plain),
-            lambda: lay.apply_perm(h), lambda: lay.apply_perm(h, gather=bag),
+            lambda: lay.apply_perm(h), lambda: lay.apply_perm(h, gather=_bag),
             bytes_moved=_hub_layout_bytes(lay, d,
                                           host.hub_counts.itemsize),
             operations=ops, bytes_gathered=lay.num_slots * d * 4))
@@ -1931,6 +1939,26 @@ def ladder_phase(device, record, pe_oracle, pge_oracle) -> int:
     return launches[0]
 
 
+def _hier_library(dev, x):
+    """The library's version of ``HierarchicalEllDevice.apply``:
+    ``embedding_bag`` over each level's kernel table, the level's input
+    with its zero row appended."""
+    import torch
+    import torch.nn.functional as F
+    buf = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+    for tbl in dev.tables:
+        out = F.embedding_bag(tbl, buf, mode="sum")
+        buf = torch.cat([out, out.new_zeros((1, out.shape[1]))])
+    return buf[:-1]
+
+
+def _hier_bytes(dev, d: int) -> int:
+    """Bytes one ``HierarchicalEllDevice.apply`` must move: every level's
+    table read once, its rows written once, its input read once."""
+    return sum(4 * t.numel() + 4 * t.shape[0] * d + 4 * r * d
+               for t, r in zip(dev.tables, dev.src_rows))
+
+
 def uniform_ell_phase(g, queries, device, record, cands) -> tuple:
     """``build_ell(width=8, level2_width=8)`` on dblp through kernel A2
     (one launch a level) against the masked plain form and A1's sum,
@@ -1940,7 +1968,6 @@ def uniform_ell_phase(g, queries, device, record, cands) -> tuple:
     on the card against numpy.  Returns (A2 rows, A2 launches of the main
     paths)."""
     import torch
-    import torch.nn.functional as F
     from gnnpe_tpu_torch.graph.csr import to_device
     from gnnpe_tpu_torch.match.preverify import semijoin_prune
     from gnnpe_tpu_torch.ops import ell, intersect, spmm
@@ -1957,15 +1984,6 @@ def uniform_ell_phase(g, queries, device, record, cands) -> tuple:
         launches_per_apply=dev.launches_per_apply)
     print("uniform ell: " + json.dumps(rec))
     off, nbr, _, _ = to_device(g, device)
-
-    def library(x):
-        # embedding_bag over each level's kernel table, the level's
-        # input with its zero row appended.
-        buf = torch.cat([x, x.new_zeros((1, x.shape[1]))])
-        for tbl in dev.tables:
-            out = F.embedding_bag(tbl, buf, mode="sum")
-            buf = torch.cat([out, out.new_zeros((1, out.shape[1]))])
-        return buf[:-1]
     rng = np.random.RandomState(8)
     rows = {}
     for d in (2, 128):
@@ -1978,7 +1996,7 @@ def uniform_ell_phase(g, queries, device, record, cands) -> tuple:
               f"{len(dev.tables)} levels")
         plain = dev.apply_plain(x)
         want = spmm.neighbor_sum(off, nbr, x)
-        lib = library(x)
+        lib = _hier_library(dev, x)
         torch.cuda.synchronize()
         err = float((got - plain).abs().max())
         check(torch.equal(got, plain), f"uniform ell D={d}: A2 differs from "
@@ -1989,11 +2007,9 @@ def uniform_ell_phase(g, queries, device, record, cands) -> tuple:
         check(torch.allclose(lib, want, rtol=1e-5, atol=1e-6),
               f"uniform ell D={d}: the embedding_bag walk leaves A1's sum")
         name = f"hier_f32_d{d}"
-        moved = sum(4 * t.numel() + 4 * t.shape[0] * d + 4 * r * d
-                    for t, r in zip(dev.tables, dev.src_rows))
         rows[name] = dict(max_abs_err=err, **_measure(
             lambda: dev.apply_plain(x), lambda: dev.apply(x),
-            lambda: library(x), bytes_moved=moved,
+            lambda: _hier_library(dev, x), bytes_moved=_hier_bytes(dev, d),
             operations=hel.num_slots * d, bytes_gathered=hel.num_slots * d * 4))
         _print_turns(f"ell_gather_sum HierarchicalEll {name} "
                      f"({dev.launches_per_apply} launches)", rows[name])
@@ -2142,6 +2158,196 @@ def profile_phase(g, paths, device, record, pge_engine, queries) -> None:
     torch.cuda.synchronize()
 
 
+# ---- the bench phase -----------------------------------------------------
+
+# The port's bench at its default (the root bench's) size.
+BENCH_SIZE = dict(num_vertices=100_000, num_edges=800_000, dim=128)
+BENCH_TIMEOUT_S = 300
+
+
+def _bench_kernel_rows(offs, nbr, device, record) -> tuple:
+    """Both kernels at the bench's shapes — A1 over the CSR, A2 through
+    the binned layout's plan, the uniform ELL's levels and the 1-shard
+    binned-halo local group's plan, f32 D=128 — each held bit-equal to
+    its plain version and timed beside its library call.  Returns (A1
+    rows, A2 rows, A2 launches of one aggregation per implementation)."""
+    import torch
+    from gnnpe_tpu_torch.ops import ell, spmm
+    from gnnpe_tpu_torch.parallel.binned_halo import BinnedHaloPlan
+    v, d = BENCH_SIZE["num_vertices"], BENCH_SIZE["dim"]
+    arcs = len(nbr)
+    x = torch.from_numpy(np.random.RandomState(9).rand(v, d).astype(
+        np.float32)).to(device)
+    off_t = torch.from_numpy(offs).to(device)
+    nbr_t = torch.from_numpy(nbr).to(device)
+    binned = ell.BinnedEllDevice.from_host(ell.build_binned_ell(
+        offs, nbr, feature_dim_hint=d, device=device), device)
+    hier = ell.build_ell(offs, nbr, width=8, level2_width=8).on(device)
+    plan = BinnedHaloPlan.build(offs, nbr, np.zeros(v, np.int64), 1,
+                                feature_dim_hint=d, device=device)
+    rect = plan.local_layouts[0].on(device)
+    check(plan.halo_layouts[0].num_arcs == 0,
+          "bench: the 1-shard plan's halo group has arcs")
+    adj = torch.sparse_csr_tensor(
+        off_t, nbr_t, torch.ones(arcs, dtype=x.dtype, device=device),
+        size=(v, v))
+    shapes = {
+        "bench_flat_f32_d128": (
+            "spmm_csr", lambda: spmm.neighbor_sum(off_t, nbr_t, x),
+            lambda: spmm.neighbor_sum_plain(off_t, nbr_t, x),
+            lambda: torch.sparse.mm(adj, x),
+            4 * (v + 1) + 4 * arcs + 2 * v * d * 4, arcs, 1),
+        "bench_binned_f32_d128": (
+            "ell_gather_sum", lambda: binned.apply_perm(x),
+            lambda: binned.apply_perm(x, gather=ell.gather_sum_plain),
+            lambda: binned.apply_perm(x, gather=_bag),
+            _hub_layout_bytes(binned, d, 1), binned.num_slots,
+            binned.launches_per_apply),
+        "bench_hier_f32_d128": (
+            "ell_gather_sum", lambda: hier.apply(x),
+            lambda: hier.apply_plain(x), lambda: _hier_library(hier, x),
+            _hier_bytes(hier, d), hier.num_slots, hier.launches_per_apply),
+        "bench_rect1_f32_d128": (
+            "ell_gather_sum", lambda: rect.apply(x),
+            lambda: rect.apply(x, gather=ell.gather_sum_plain),
+            lambda: rect.apply(x, gather=_bag), _plan_bytes(rect, d),
+            plan.local_layouts[0].num_slots, rect.launches_per_apply),
+    }
+    a1_rows, a2_rows = {}, {}
+    for name, (kernel, kern, plain_fn, lib_fn, moved, slots,
+               launches) in shapes.items():
+        counter = spmm if kernel == "spmm_csr" else ell
+        before = counter.LAUNCHES
+        got = kern()
+        check(counter.LAUNCHES - before == launches,
+              f"bench: {name} launched {counter.LAUNCHES - before} times, "
+              f"its plan says {launches}")
+        plain = plain_fn()
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        check(torch.equal(got, plain), f"{kernel} {name} differs from its "
+              f"plain version (max abs err {err})")
+        row = dict(max_abs_err=err, **_measure(
+            plain_fn, kern, lib_fn, bytes_moved=moved,
+            operations=slots * d, bytes_gathered=slots * d * 4))
+        (a1_rows if kernel == "spmm_csr" else a2_rows)[name] = row
+        _print_turns(f"{kernel} {name} ({launches} launches)", row)
+    record["bench"]["kernel_shapes"] = dict(
+        arcs=arcs, binned_slots=binned.num_slots, hier_slots=hier.num_slots,
+        rect_slots=plan.local_layouts[0].num_slots,
+        binned_hubs=0 if binned.hub_rows is None else len(binned.hub_rows))
+    return a1_rows, a2_rows, {"binned": binned.launches_per_apply,
+                              "ell": hier.launches_per_apply,
+                              "binned_halo": rect.launches_per_apply,
+                              "flat": 0}
+
+
+def bench_phase(device, record) -> tuple:
+    """The port's bench (gnnpe_tpu_torch/bench.py) at its default size:
+    one aggregation of each implementation held to ``neighbor_sum_np``
+    in f64 (rtol 1e-5, atol 1e-6); both kernels at the bench's shapes
+    against their plain versions; then the main path, ``bench_aggregation``
+    of each implementation with the counts set to 0 just before and read
+    just after (each step's launches as its plan says, the share of the
+    bound finite and positive); last ``python -m gnnpe_tpu_torch.bench
+    --device cuda --skip-halo`` in a subprocess, whose last line must
+    carry the root bench's four keys.  Returns (A1 rows, A2 rows, (A1,
+    A2) launches of the main path)."""
+    import os
+    import torch
+    from gnnpe_tpu_torch import bench
+    from gnnpe_tpu_torch.ops import ell, spmm
+    from gnnpe_tpu_torch.parallel.mesh import process_group
+    v, e, d = (BENCH_SIZE[k] for k in ("num_vertices", "num_edges", "dim"))
+    rec = record["bench"] = {}
+    t0 = time.perf_counter()
+    offs, nbr = bench.csr_of(*bench.synth_graph(v, e), v)
+    x = np.random.RandomState(1).rand(v, d).astype(np.float32)
+    want = spmm.neighbor_sum_np(offs, nbr, x)
+    with process_group(device):
+        for impl in bench.IMPLEMENTATIONS:
+            a = bench.build_aggregation(offs, nbr, x, impl, device)
+            with torch.no_grad():
+                got = a.to_vertices(a.agg(a.x)).cpu().numpy()
+            err = float(np.abs(got - want).max())
+            check(got.shape == want.shape
+                  and np.allclose(got, want, rtol=1e-5, atol=1e-6),
+                  f"bench {impl}: one aggregation leaves the f64 sum by "
+                  f"{err}")
+            rec.setdefault("max_abs_err", {})[impl] = err
+            del a
+    print(f"bench: one aggregation of each of {bench.IMPLEMENTATIONS} within "
+          f"rtol 1e-5 / atol 1e-6 of the f64 sum (max abs err "
+          f"{rec['max_abs_err']})")
+    a1_rows, a2_rows, a2_plan = _bench_kernel_rows(offs, nbr, device, record)
+    torch.cuda.synchronize()
+
+    spmm.LAUNCHES = ell.LAUNCHES = 0
+    rows = {}
+    for impl in bench.IMPLEMENTATIONS:
+        r = rows[impl] = {}
+        eps, frac, step_s = bench.bench_aggregation(
+            implementation=impl, device=device, record=r, **BENCH_SIZE)
+        check(np.isfinite(frac) and frac > 0 and eps > 0,
+              f"bench {impl}: edges/s {eps}, share of the bound {frac}")
+        want_launches = dict(a1=int(impl in ("flat", "binned_halo")),
+                             a2=a2_plan[impl])
+        check(r["launches_per_step"] == want_launches,
+              f"bench {impl}: a step launched {r['launches_per_step']}, its "
+              f"plan says {want_launches}")
+        cont = r["continuity"]
+        print(f"bench {impl}: {eps:.6e} edges/s, step {step_s * 1e3:.4f} ms "
+              f"by events (q1 {r['step_q1_s'] * 1e3:.4f}, q3 "
+              f"{r['step_q3_s'] * 1e3:.4f}), {r['graph_s'] * 1e3:.4f} ms "
+              f"replayed from a CUDA graph; bound {r['bound_s'] * 1e3:.4f} ms "
+              f"by {r['bound_by']} ({r['bytes']} B at "
+              f"{r['memory_bytes_per_s'] / 1e12:.4f} TB/s measured): share "
+              f"{frac:.4f} by events, {r['graph_share_of_bound']:.4f} on the "
+              f"card; published-peak share "
+              f"{r['published_share_of_bound']:.4f}; launches a step "
+              f"{r['launches_per_step']}; {r['num_hubs']} hubs, "
+              f"{r['num_slots']} slots; continuity (no bound here): "
+              + ", ".join(f"{k} {cont[k]:.4f}" for k in (
+                  "overlap_ratio", "additive_ratio", "hbm_byte_fraction")
+                  if k in cont))
+        if frac > 1.0:
+            print(f"bench {impl}: FINDING: share of the bound {frac:.4f} > 1")
+    launches = (spmm.LAUNCHES, ell.LAUNCHES)
+    # Each bench_aggregation runs a warm-up loop and REPS timed loops of
+    # ITERS steps, captures one loop in a CUDA graph (its launches are
+    # made once, at capture) and reads one step's launches.
+    calls = (bench.REPS + 2) * bench.ITERS + 1
+    want_total = tuple(
+        calls * sum(r["launches_per_step"][k] for r in rows.values())
+        for k in ("a1", "a2"))
+    check(launches == want_total and min(launches) > 0,
+          f"bench: the main path launched (A1, A2) {launches}, its steps say "
+          f"{want_total}")
+    rec["rows"] = rows
+    rec["halo_vs_binned"] = (rows["binned_halo"]["edges_per_sec"]
+                             / rows["binned"]["edges_per_sec"])
+    print(f"bench: binned_halo (1 shard) / binned = {rec['halo_vs_binned']:.4f}; "
+          f"main path (A1, A2) launches {launches}")
+
+    out = subprocess.run(
+        [sys.executable, "-m", "gnnpe_tpu_torch.bench", "--device", "cuda",
+         "--skip-halo"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    check(out.returncode == 0, f"python -m gnnpe_tpu_torch.bench exited "
+          f"{out.returncode}: {out.stderr[-2000:]}")
+    last = json.loads(out.stdout.strip().splitlines()[-1])
+    check(list(last) == ["metric", "value", "unit", "vs_baseline"]
+          and last["metric"] == "aggregation_edges_per_sec_chip"
+          and last["unit"] == "edges/s" and last["value"] > 0
+          and np.isfinite(last["vs_baseline"]),
+          f"python -m gnnpe_tpu_torch.bench: last line {last}")
+    rec["cli_last_line"] = last
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"bench: python -m gnnpe_tpu_torch.bench --device cuda --skip-halo "
+          f"-> {json.dumps(last)} ({rec['phase_s']:.1f} s for the phase)")
+    return a1_rows, a2_rows, launches
+
+
 def _kernel_row(name, replaces, launches, rows, main_shape) -> dict:
     """One entry of the kernels record: the times and the bound at the
     main path's shape, and under ``shapes`` those of every shape."""
@@ -2245,6 +2451,12 @@ def main() -> int:
     fresh()
     ell_rows.update(probe_phase(device, smi, record))
     peak("probe")
+    fresh()
+    a1_bench, a2_bench, bench_launches = bench_phase(device, record)
+    rows.update(a1_bench)
+    ell_rows.update(a2_bench)
+    launches += bench_launches[0]
+    peak("bench")
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "gnnpe_tpu"))
     check(not foreign, f"the port imported {foreign}")
@@ -2255,7 +2467,8 @@ def main() -> int:
         _kernel_row("spmm_csr", "experiments/pallas_spmm.py:181", launches,
                     rows, "f64_d2"),
         _kernel_row("ell_gather_sum", "experiments/pallas_blocked_spmm.py:106",
-                    a2 + a2_multi + a2_hier, ell_rows, "f32_d2")]}))
+                    a2 + a2_multi + a2_hier + bench_launches[1], ell_rows,
+                    "f32_d2")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -40,39 +40,18 @@ search's own device tensors).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import gc
 import json
 import os
 import sys
-import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from gnnpe_tpu_torch.parallel.mesh import process_group
 from gnnpe_tpu_torch.utils.device import as_device
-
-
-@contextlib.contextmanager
-def _process_group(device):
-    """The default process group: the one that is up, the launcher's, or
-    else a group of one made here; a group made here is destroyed at the
-    end."""
-    from gnnpe_tpu_torch.parallel.mesh import maybe_distributed_init
-    if dist.is_initialized():
-        yield
-        return
-    with tempfile.TemporaryDirectory(prefix="gnnpe_ladder_") as tmp:
-        if not maybe_distributed_init(device):
-            store = "file://" + os.path.join(tmp, "store")
-            maybe_distributed_init(device, init_method=store, rank=0,
-                                   world_size=1)
-        try:
-            yield
-        finally:
-            dist.destroy_process_group()
 
 
 def _pct(vals, q):
@@ -178,7 +157,7 @@ def run_rung(name: str, queries: int = 50, query_size: int = 8,
           f"est 3v-paths={est_paths3}", file=sys.stderr)
     qs = [sample_query(g, query_size, tree=True, seed=seed + i)
           for i in range(queries)]
-    with _process_group(device):
+    with process_group(device):
         world = dist.get_world_size()
         mesh = make_mesh(world, axes=("graph",), shape=(world,),
                          device=device)

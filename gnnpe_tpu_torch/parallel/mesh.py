@@ -19,8 +19,10 @@ Axes, as in gnnpe_tpu:
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
+import tempfile
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -51,6 +53,25 @@ def maybe_distributed_init(device, init_method: Optional[str] = None,
         return False
     dist.init_process_group(backend, timeout=timeout)
     return True
+
+
+@contextlib.contextmanager
+def process_group(device):
+    """The default process group for the enclosed work: the one that is
+    up, the launcher's, or else a group of one made here (a ``file://``
+    store in a temporary directory), which is destroyed at the end."""
+    if dist.is_initialized():
+        yield
+        return
+    with tempfile.TemporaryDirectory(prefix="gnnpe_group_") as tmp:
+        if not maybe_distributed_init(device):
+            store = "file://" + os.path.join(tmp, "store")
+            maybe_distributed_init(device, init_method=store, rank=0,
+                                   world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
 
 
 def make_mesh(n_devices: Optional[int] = None,
