@@ -77,10 +77,10 @@
    (the halo backend bit-equal, the binned one at rtol 1e-4 / atol
    1e-4); 5 train steps of each backend ("binned_halo", "halo", "psum")
    whose losses must track the single device's (``fit``'s inner loop
-   over the binned aggregation, from ``fit``'s initial weights, on the
-   same batches of random path pairs: ``fit``'s own positives are
-   dominated by construction, so their hinge is ~0) within rtol 1e-3 /
-   atol 1e-5.
+   over the binned aggregation and the readout plans, from ``fit``'s
+   initial weights, on the same batches of random path pairs: ``fit``'s
+   own positives are dominated by construction, so their hinge is ~0)
+   within rtol 1e-3 / atol 1e-5.
    *Four ranks on the one card over gloo*, started by this script
    (parallel/launch.py): NCCL takes one rank per device, so the ranks
    share ``cuda:0``, compute there with the kernels, and their
@@ -99,12 +99,15 @@
    the counts set to 0 after every oracle and single-device comparison,
    so that only the multi-device layer's own launches are read — and
    each must be exactly what the path says it launches (``agg.launches``
-   of a plan's aggregation, ``step.launches`` of a train step; one A1 a
-   query for its VDE), at world size 1 and in every rank.
+   of a plan's aggregation, ``step.launches`` of a train step: the
+   aggregation's and the readout plans' backward levels; one A1 a query
+   for its VDE), at world size 1 and in every rank.
 10. Train phase: ``train_payoff.run`` at the dblp rung (PGE, D=2, 300
    steps, binned aggregation, 8 held-out queries).  A2 must launch
    ``launches_per_apply`` times in every step's forward and in its
-   backward; every loss finite, the last below the first, and the first
+   backward, and once a level of each readout plan (``readout_plans``:
+   the label lookup and the path readout) in the backward; every loss
+   finite, the last below the first, and the first
    and last equal to the values earlier revisions of the port recorded
    for this seed; every trained answer equal to the fixed-VDE answer;
    every trained candidate set equal to the flat f64 host filter on the
@@ -112,7 +115,7 @@
    a numpy forward of the same weights.  Then a 50-step
    ``aggregation="segment"`` fit from the same initial weights and
    batches (the binned run's first chunk) must track the binned loss
-   history within rtol 1e-3.  ``fit`` prices the binned layout's hubs
+   history within rtol 1e-3, launching A2 for the readout plans only.  ``fit`` prices the binned layout's hubs
    with the card's measured constants (phase 14); that host layout must
    equal the one of gnnpe_tpu's "cpu" row, which the recorded losses
    came from (no hubs, the same permutation and tables).
@@ -132,11 +135,20 @@
    ell=)`` on the PE oracle's candidates equal to the A1 form; one
    attention hop (D=16) within rtol 1e-4 of a float64 numpy hop; the
    intersect and bitset forms on the card equal to numpy.
-13. Profile phase: ``utils/profiling.trace`` around 5 warm binned ``fit``
-   steps (the train phase's model and pairs), its top device kernels and
-   ops by share of device time and the share of ``IndexBackward0``; a
-   trace of one PGE ``online`` call must hold the stage ranges
-   ``query_plan``, ``search``, ``refine``.
+13. Readout rows and profile phase: the trainer's two fixed gathers at
+   dblp (the label lookup, 317,080 entries into 15 rows, and the readout
+   of 500,000 paths, 1,500,000 entries into 317,080 rows), f32 D=2: each
+   ``GatherRows`` plan's backward through kernel A2 (one launch a level
+   of the transposed index's uniform ELL) bit-equal to its masked plain
+   form, timed as in phase 3 beside ``index_add_`` and torch's own
+   backward of ``x[idx]`` (``index_put_`` with ``accumulate=True``).
+   Then ``utils/profiling.trace`` around 5 warm binned ``fit`` steps (the
+   train phase's model and pairs), its top device kernels and ops by
+   share of device time, each readout backward's range
+   (``readout.labels.backward``, ``readout.paths.backward``) and what is
+   left of ``IndexBackward0`` (the pair gathers) beside its share before
+   the plans; a trace of one PGE ``online`` call must hold the stage
+   ranges ``query_plan``, ``search``, ``refine``.
 14. Probe phase (last): ``utils/device_probe.device_constants`` measured
    on the card (its matmul the hub product's: f32, TF32 off), and the
    youtube and youtube_skew rungs' binned layouts built with them (a
@@ -169,8 +181,8 @@ those candidates; the table and device phases share the oracle of the
 phase before them.  Each kernel's launch count over the main path of
 the phases that run it (A1: PE, PE table, PE streamed, PGE, PGE device,
 both pre-verify runs, multi-device, ladder, train and bench; A2:
-multi-device, train, the uniform-ELL pre-verify and attention, and
-bench) must be > 0, and
+multi-device, train (aggregation and readout), the uniform-ELL
+pre-verify and attention, and bench) must be > 0, and
 the index tensors must live on the card.
 At the end neither ``jax`` nor any module of ``gnnpe_tpu`` may have been
 imported.  Any failure exits non-zero.  The full record is printed as one
@@ -1248,21 +1260,24 @@ def _step_inputs(g, num_paths: int, seed=0, batch_size=1024):
     return model, batches.astype(np.int64)
 
 
-def _single_device_step(g, model, device):
+def _single_device_step(g, model, device, paths):
     """``fit``'s inner loop as a step function: ``dominance_loss`` over
-    the binned aggregation (kernel A2, forward and backward) and Adam at
-    ``fit``'s settings."""
-    import torch
+    the binned aggregation (kernel A2, forward and backward) with the
+    readout plans of ``paths`` (the step's ``paths`` must be them), and
+    Adam at ``fit``'s settings."""
     from gnnpe_tpu_torch.models.gnn import dominance_loss
+    from gnnpe_tpu_torch.models.train import readout_plans
     from gnnpe_tpu_torch.ops.ell import (BinnedEllDevice, binned_aggregate,
                                          build_binned_ell)
     aggregate = binned_aggregate(BinnedEllDevice.from_host(
         build_binned_ell(g.offsets, g.neighbors), device))
+    labels_plan, paths_plan = readout_plans(model, g, paths)
     opt = _adam(model)
 
     def step(labels, paths, pairs):
         opt.zero_grad(set_to_none=True)
-        loss = dominance_loss(model, labels, paths, pairs, aggregate)
+        loss = dominance_loss(model, labels, paths, pairs, aggregate,
+                              labels_plan=labels_plan, paths_plan=paths_plan)
         loss.backward()
         opt.step()
         return loss.detach()
@@ -1396,8 +1411,8 @@ def multi_device_phase(g, queries, device, record, pe_oracle, pge_oracle,
         paths_t = torch.from_numpy(paths.astype(np.int64)).to(device)
         labels = labels.long()
         want_losses, single_ms = _timed_steps(
-            _single_device_step(g, make_model(device), device), labels,
-            paths_t, batches, device)
+            _single_device_step(g, make_model(device), device, paths),
+            labels, paths_t, batches, device)
         check(np.isfinite(want_losses).all() and min(want_losses) > 1e-3,
               f"multi world 1: the single-device losses {want_losses} say "
               "nothing")
@@ -1615,7 +1630,7 @@ def train_phase(g, device, record) -> tuple:
     import torch
     from gnnpe_tpu_torch.frontends import train_payoff
     from gnnpe_tpu_torch.models.gnn import PathGNN
-    from gnnpe_tpu_torch.models.train import fit
+    from gnnpe_tpu_torch.models.train import fit, readout_plans
     from gnnpe_tpu_torch.ops import ell, spmm
     measured = ell.build_binned_ell(g.offsets, g.neighbors, device=device)
     pinned = ell.build_binned_ell(g.offsets, g.neighbors,
@@ -1660,11 +1675,6 @@ def train_phase(g, device, record) -> tuple:
           f"{fixed_row['online_p50_ms']:.2f} ms, trained "
           f"{trained_row['online_p50_ms']:.2f} ms")
     check(aggregation == "binned", "dblp did not train binned")
-    # One forward and one backward apply_perm per step, one launch per
-    # level each: the backward went through the kernel too.
-    check(launches[1] == 2 * launches_per_apply * TRAIN_STEPS,
-          f"{launches[1]} ell_gather_sum launches in fit, want "
-          f"{2 * launches_per_apply * TRAIN_STEPS}")
     check(launches[0] > 0, "train phase launched no spmm_csr kernel")
     check(np.isfinite(hist).all() and len(hist) == TRAIN_STEPS,
           "loss history not finite")
@@ -1673,6 +1683,21 @@ def train_phase(g, device, record) -> tuple:
               zip((hist[0], hist[-1]), TRAIN_LOSS_FIRST_LAST)),
           f"loss {hist[0]:.6f} -> {hist[-1]:.6f} left the recorded "
           f"{TRAIN_LOSS_FIRST_LAST}")
+
+    # The readout plans fit builds for these paths, laid out on the host
+    # (their launches depend on the tables' shapes only).
+    cpu_model = PathGNN(dim=2, num_layers=1, labels_count=g.labels_count,
+                        device="cpu")
+    readout = sum(p.launches_per_backward for p in readout_plans(
+        cpu_model, g, pay.train_paths))
+    rec["readout_launches_per_step"] = readout
+    # One forward and one backward apply_perm per step, one launch per
+    # level each, and each readout plan's levels in the backward: the
+    # backward went through the kernel too.
+    want = (2 * launches_per_apply + readout) * TRAIN_STEPS
+    check(launches[1] == want,
+          f"{launches[1]} ell_gather_sum launches in fit, want {want} "
+          f"((2 x {launches_per_apply} + {readout}) x {TRAIN_STEPS})")
 
     eng = pay.engine
     check(np.allclose(eng.vertices.vde, _numpy_forward(pay.state.params, g),
@@ -1693,12 +1718,17 @@ def train_phase(g, device, record) -> tuple:
 
     seg = PathGNN(dim=2, num_layers=1, labels_count=g.labels_count,
                   activation="softplus", device=device)
+    ell.LAUNCHES = 0
     st = fit(seg, g, pay.train_paths, num_steps=SEGMENT_STEPS,
              batch_size=1024, seed=0, negatives=True, learning_rate=1e-2,
              aggregation="segment", device=device)
+    check(ell.LAUNCHES == readout * SEGMENT_STEPS,
+          f"segment fit: {ell.LAUNCHES} A2 launches, the readout plans say "
+          f"{readout * SEGMENT_STEPS}")
     diff = np.abs(np.asarray(st.history) - np.asarray(hist[:SEGMENT_STEPS]))
     rec["segment"] = dict(steps=SEGMENT_STEPS, step_ms=st.steps_s
-                          / SEGMENT_STEPS * 1e3, max_abs_diff=float(diff.max()))
+                          / SEGMENT_STEPS * 1e3, max_abs_diff=float(diff.max()),
+                          a2_launches=ell.LAUNCHES)
     check(np.allclose(st.history, hist[:SEGMENT_STEPS], rtol=1e-3,
                       atol=1e-5),
           f"segment fit's losses leave the binned ones (max diff "
@@ -1716,9 +1746,9 @@ def _hub_layout_bytes(lay, d: int, count_bytes: int) -> int:
     """Bytes one ``BinnedEllDevice.apply_perm`` must move: the plan's
     (every table and padcnt read once, its rows written once, every
     level's input read once), the hub counts at ``count_bytes`` a count
-    (the least that holds them: the host layout's int8 or int16), the
-    hub rows read once and the output written once more by the product's
-    add."""
+    (on the card ``ops/ell.py:CUDA_HUB_ENTRY_BYTES``: B is f32 there),
+    the hub rows read once and the output written once more by the
+    product's add."""
     plan = lay.plan
     moved = sum(4 * t.rows * t.width + 4 * t.rows * d
                 + (4 * t.rows if t.padcnt is not None else 0)
@@ -1882,8 +1912,7 @@ def probe_phase(device, smi, record) -> dict:
         rows[name] = dict(max_abs_err=err, rel_err_vs_a1=rel, **_measure(
             lambda: lay.apply_perm(h, gather=ell.gather_sum_plain),
             lambda: lay.apply_perm(h), lambda: lay.apply_perm(h, gather=_bag),
-            bytes_moved=_hub_layout_bytes(lay, d,
-                                          host.hub_counts.itemsize),
+            bytes_moved=_hub_layout_bytes(lay, d, ell.CUDA_HUB_ENTRY_BYTES),
             operations=ops, bytes_gathered=lay.num_slots * d * 4))
         _print_turns(f"ell_gather_sum + hub product {name} "
                      f"({lay.launches_per_apply} launches, {nh} hubs; within "
@@ -2082,8 +2111,74 @@ def uniform_ell_phase(g, queries, device, record, cands) -> tuple:
     return rows, a2_prune + a2_attn
 
 
+def readout_rows(g, paths, device, record) -> dict:
+    """The trainer's two fixed gathers at dblp (``readout_plans``: the
+    label lookup, the readout of ``paths``), f32 D=2: each plan's
+    backward by A2 (one launch a level) bit-equal to its masked plain
+    form and within rtol 1e-4 of ``index_add_``, timed as in phase 3 with
+    ``index_add_`` (atomics, one call) as the library call, and torch's
+    own backward of ``x[idx]`` (``index_put_`` with ``accumulate=True``,
+    what the trainer ran before) timed beside it.  The bound counts what
+    the function must move: the cotangent and the index (4 bytes an
+    entry) read once, the gradient written once.  Returns the A2 rows."""
+    import torch
+    from gnnpe_tpu_torch.models.gnn import PathGNN
+    from gnnpe_tpu_torch.models.train import readout_plans
+    from gnnpe_tpu_torch.ops import ell
+    model = PathGNN(dim=2, num_layers=1, labels_count=g.labels_count,
+                    activation="softplus", device=device)
+    t0 = time.perf_counter()
+    plans = readout_plans(model, g, paths)
+    rec = record["readout"] = dict(build_s=time.perf_counter() - t0)
+    rng = np.random.RandomState(9)
+    rows = {}
+    for plan in plans:
+        n, r, idx = plan.idx.numel(), plan.num_rows, plan.idx
+        cot = torch.from_numpy(rng.rand(n, 2).astype(np.float32)).to(device)
+        ell.LAUNCHES = 0
+        got = plan.backward(cot)
+        check(ell.LAUNCHES == plan.launches_per_backward
+              == len(plan.back.tables),
+              f"readout {plan.name}: {ell.LAUNCHES} A2 launches for a "
+              f"backward of {len(plan.back.tables)} levels")
+        plain = plan.backward_plain(cot)
+        add = lambda: torch.zeros((r, 2), device=device).index_add_(
+            0, idx, cot)
+        put = lambda: torch.zeros((r, 2), device=device).index_put_(
+            (idx,), cot, accumulate=True)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        check(torch.equal(got, plain), f"readout {plan.name}: A2 differs "
+              f"from the masked plain form (max abs err {err})")
+        for what, lib in (("index_add_", add()), ("index_put_", put())):
+            check(torch.allclose(lib, plain, rtol=1e-4, atol=1e-4),
+                  f"readout {plan.name}: {what} leaves the plain form by "
+                  f"{float((lib - plain).abs().max())}")
+        name = f"readout_{plan.name.split('.')[-1]}_f32_d2"
+        rows[name] = dict(max_abs_err=err, **_measure(
+            lambda: plan.backward_plain(cot), lambda: plan.backward(cot),
+            add, bytes_moved=n * 2 * 4 + n * 4 + r * 2 * 4,
+            operations=n * 2, bytes_gathered=n * 2 * 4))
+        rows[name].update(
+            entries=n, rows=r, index_put_accumulate_ms=cuda_ms(put, 5),
+            levels=[list(t.shape) for t in plan.back.tables],
+            layout_bytes=_hier_bytes(plan.back, 2))
+        _print_turns(f"ell_gather_sum readout {name} "
+                     f"({plan.launches_per_backward} launches)", rows[name])
+        print(f"  {name}: {n} entries into {r} rows, levels "
+              f"{rows[name]['levels']}; torch's x[idx] backward "
+              f"(index_put_ accumulate) "
+              f"{rows[name]['index_put_accumulate_ms']:.4f} ms")
+    rec["rows"] = rows
+    return rows
+
+
 PROFILE_STEPS = 5
 PROFILE_TOP = 5
+# Share of a warm binned step's device time in IndexBackward0 before the
+# readout's gathers had a planned backward (PERF.md §5).
+PROFILE_INDEX_BACKWARD_BEFORE = 0.9282
+READOUT_RANGES = ("readout.labels.backward", "readout.paths.backward")
 
 
 def _trace_events(path: str) -> list:
@@ -2092,12 +2187,52 @@ def _trace_events(path: str) -> list:
     return data["traceEvents"] if isinstance(data, dict) else data
 
 
+GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _cpu_events(events, name: str, cat: str) -> list:
+    return [ev for ev in events if ev.get("ph") == "X"
+            and ev.get("cat") == cat and ev.get("name") == name]
+
+
+def _launched_inside(events, ranges, same_thread: bool = True) -> set:
+    """Correlation ids of the launches (the trace's ``cuda_runtime`` and
+    ``cuda_driver`` events) made inside the CPU events ``ranges``: on a
+    range's own thread, or on any thread when not ``same_thread`` (the
+    backward runs on autograd's thread)."""
+    launches = [ev for ev in events if ev.get("ph") == "X"
+                and ev.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in ev.get("args", {})]
+    ids = set()
+    for r in ranges:
+        lo, hi = r["ts"], r["ts"] + r["dur"]
+        ids.update(ev["args"]["correlation"] for ev in launches
+                   if lo <= ev["ts"] <= hi
+                   and (not same_thread or ev["tid"] == r["tid"]))
+    return ids
+
+
+def _device_us(events, ids: set) -> dict:
+    """Device time by name (us) of the kernels, copies and sets whose
+    launches have these correlation ids."""
+    out = {}
+    for ev in events:
+        if (ev.get("ph") == "X" and ev.get("cat") in GPU_CATS
+                and ev.get("args", {}).get("correlation") in ids):
+            out[ev["name"]] = out.get(ev["name"], 0.0) + ev["dur"]
+    return out
+
+
 def profile_phase(g, paths, device, record, pge_engine, queries) -> None:
     """``utils/profiling.trace`` around PROFILE_STEPS warm binned steps of
     ``fit`` at dblp (the train phase's model, batch and pairs; two
-    untraced steps first), its top device kernels and ops by their share
-    of device time; then a trace of one PGE ``online`` call must hold the
-    engine's stage ranges."""
+    untraced steps first).  The step's device time is that of the work
+    launched inside ``fit``'s ``fit.steps`` range (its set-up left out);
+    its top device kernels by share of it, the share of the kernels
+    launched inside each readout backward's range and inside
+    ``IndexBackward0``; the top ops of the whole traced call; then a
+    trace of one PGE ``online`` call must hold the engine's stage
+    ranges."""
     import torch
     from gnnpe_tpu_torch.models.gnn import PathGNN
     from gnnpe_tpu_torch.models.train import fit
@@ -2111,24 +2246,32 @@ def profile_phase(g, paths, device, record, pge_engine, queries) -> None:
         with trace(tmp, device) as prof:
             fit(model, g, paths, num_steps=PROFILE_STEPS, state=state, **kw)
         events = _trace_events(prof.trace_path)
-        kernels = {}
-        for ev in events:
-            if ev.get("ph") == "X" and ev.get("cat") in (
-                    "kernel", "gpu_memcpy", "gpu_memset"):
-                kernels[ev["name"]] = kernels.get(ev["name"], 0.0) + ev["dur"]
+        steps = _cpu_events(events, "fit.steps", "user_annotation")
+        check(len(steps) == 1, f"profile: {len(steps)} fit.steps ranges")
+        kernels = _device_us(events, _launched_inside(events, steps, False))
         total_us = sum(kernels.values())
         check(total_us > 0, "profile: the trace holds no device time")
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
         attr = ("self_device_time_total" if hasattr(
             prof.key_averages()[0], "self_device_time_total")
             else "self_cuda_time_total")
-        ops = sorted(((e.key, getattr(e, attr), getattr(
-            e, attr.replace("self_", ""))) for e in prof.key_averages()),
-            key=lambda r: -r[1])
-        # The node and its evaluate_function wrapper hold the same
-        # kernels: the larger of the two, not their sum.
-        index_bw = max([total for key, _, total in ops
-                        if key.endswith("IndexBackward0")], default=0.0)
+        ops = sorted(((e.key, getattr(e, attr)) for e in prof.key_averages()),
+                     key=lambda r: -r[1])
+        ops_us = sum(s for _, s in ops)
+
+        def inside(name, cat):
+            return sum(_device_us(events, _launched_inside(
+                events, _cpu_events(events, name, cat))).values())
+
+        index_bw = inside("IndexBackward0", "cpu_op")
+        # Each readout backward's range: the device time of the kernels
+        # launched inside it, and the span of its GPU annotation in the
+        # trace (the gaps between its launches included).
+        ranges = {name: dict(
+            device_us=inside(name, "user_annotation"),
+            span_us=sum(ev["dur"] for ev in _cpu_events(
+                events, name, "gpu_user_annotation")))
+            for name in READOUT_RANGES}
         online_dir = f"{tmp}/online"
         with trace(online_dir, device) as prof2:
             pge_engine.online(queries[0], union="device")
@@ -2141,20 +2284,36 @@ def profile_phase(g, paths, device, record, pge_engine, queries) -> None:
         steps=PROFILE_STEPS, device_us=total_us,
         step_device_ms=total_us / 1e3 / PROFILE_STEPS,
         top_kernels=[dict(name=n, us=us, share=us / total_us) for n, us in top],
-        top_ops=[dict(op=k, self_us=s, share=s / total_us)
-                 for k, s, _ in ops[:PROFILE_TOP]],
-        index_backward_us=index_bw, index_backward_share=index_bw / total_us)
+        top_ops=[dict(op=k, self_us=s, share=s / ops_us)
+                 for k, s in ops[:PROFILE_TOP]],
+        index_backward_us=index_bw, index_backward_share=index_bw / total_us,
+        index_backward_share_before=PROFILE_INDEX_BACKWARD_BEFORE,
+        readout_ranges={name: dict(r, share=r["device_us"] / total_us,
+                                   span_share=r["span_us"] / total_us)
+                        for name, r in ranges.items()})
+    for name, r in rec["readout_ranges"].items():
+        check(r["device_us"] > 0 or r["span_us"] > 0,
+              f"profile: no device time in the range {name}")
     print(f"profile: {PROFILE_STEPS} warm binned fit steps at dblp, "
           f"{rec['step_device_ms']:.3f} ms of device time a step; top "
           "kernels by share of device time:")
     for k in rec["top_kernels"]:
         print(f"  {100 * k['share']:6.2f} %  {k['us']:10.1f} us  {k['name']}")
-    print("  top ops by self device time:")
+    print("  top ops by self device time over the traced fit call, its "
+          "set-up included:")
     for k in rec["top_ops"]:
         print(f"  {100 * k['share']:6.2f} %  {k['self_us']:10.1f} us  {k['op']}")
-    print(f"profile: IndexBackward0 (the backward of the x[idx] gathers) "
-          f"{100 * rec['index_backward_share']:.2f} % of device time; the "
-          f"stage ranges {list(stages)} are in the trace of one online call")
+    for name, r in rec["readout_ranges"].items():
+        print(f"profile: range {name}: {100 * r['share']:.2f} % of device "
+              f"time ({r['device_us'] / PROFILE_STEPS:.1f} us a step by its "
+              f"kernels; its GPU span {100 * r['span_share']:.2f} %)")
+    print(f"profile: IndexBackward0 (the backward of the x[idx] gathers "
+          f"left: the pair rows, one gather) "
+          f"{100 * rec['index_backward_share']:.2f} % of device time "
+          f"({index_bw / PROFILE_STEPS:.1f} us a step), "
+          f"{100 * PROFILE_INDEX_BACKWARD_BEFORE:.2f} % before the readout "
+          f"plans; the stage ranges {list(stages)} are in the trace "
+          "of one online call")
     torch.cuda.synchronize()
 
 
@@ -2437,6 +2596,9 @@ def main() -> int:
     paths = pe_oracle["paths"]
     paths = paths[np.sort(np.random.RandomState(3).choice(
         len(paths), size=500_000, replace=False))]
+    ell_rows.update(readout_rows(g, paths, device, record))
+    peak("readout")
+    fresh()
     profile_phase(g, paths, device, record,
                   pge_oracle["engine"].attach_device(device), queries)
     del pe_oracle, pge_oracle["engine"], paths

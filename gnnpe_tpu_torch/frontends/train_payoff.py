@@ -79,6 +79,20 @@ class Payoff:
     train_paths: np.ndarray
 
 
+def sample_train_paths(g, length: int, seed: int) -> np.ndarray:
+    """``run``'s training paths: ``g``'s deduplicated paths of ``length``
+    vertices, subsampled at ``seed`` to at most MAX_TRAIN_PATHS rows to
+    bound the cost of embedding every path each step."""
+    from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
+    from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
+    paths, _ = enumerate_paths(g, degree_sorted_nodes(g), length, dedup=True)
+    if len(paths) > MAX_TRAIN_PATHS:
+        sel = np.random.RandomState(seed + 3).choice(
+            len(paths), size=MAX_TRAIN_PATHS, replace=False)
+        paths = paths[np.sort(sel)]
+    return paths
+
+
 def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
         steps: int = 300, vde_dim: int = 2, l: int = 2, seed: int = 0,
         learning_rate: float = 1e-2, max_answers: int = 100_000,
@@ -91,12 +105,10 @@ def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
 
     from gnnpe_tpu_torch.config import PEConfig, PGEConfig
     from gnnpe_tpu_torch.engine import PEEngine, PGEEngine
-    from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
     from gnnpe_tpu_torch.io.datasets import load_dataset, sample_query
     from gnnpe_tpu_torch.models.embedder import model_embedder
     from gnnpe_tpu_torch.models.gnn import PathGNN
     from gnnpe_tpu_torch.models.train import fit
-    from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
     from gnnpe_tpu_torch.utils.device import as_device
 
     if variant not in ("pe", "pge"):
@@ -124,15 +136,9 @@ def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
           f" p50={base['online_p50_ms']:.1f}ms", file=sys.stderr)
 
     # Training pairs come from the deduplicated paths (PGE's groups
-    # fold 3-vertex paths; PE indexes its own length), subsampled to
-    # bound the cost of embedding every path each step.
-    train_paths, _ = enumerate_paths(
-        g, degree_sorted_nodes(g),
-        max(l + 1, 2) if variant == "pge" else cfg.path_length, dedup=True)
-    if len(train_paths) > MAX_TRAIN_PATHS:
-        sel = np.random.RandomState(seed + 3).choice(
-            len(train_paths), size=MAX_TRAIN_PATHS, replace=False)
-        train_paths = train_paths[np.sort(sel)]
+    # fold 3-vertex paths; PE indexes its own length).
+    train_paths = sample_train_paths(
+        g, max(l + 1, 2) if variant == "pge" else cfg.path_length, seed)
     model = PathGNN(dim=vde_dim, num_layers=1, labels_count=g.labels_count,
                     activation="softplus", device=device)
     aggregation = "binned" if g.num_edges > 100_000 else "segment"

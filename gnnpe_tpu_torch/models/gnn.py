@@ -7,6 +7,10 @@ with non-negative weights (softplus of raw parameters), which keeps the
 monotone-dominance property the index prunes with.  The neighbour sum
 ``A h`` is injected as ``aggregate``: ``ops.spmm.NeighborSum`` (kernel
 A1) or ``ops.ell.binned_aggregate`` (kernel A2, forward and backward).
+The label lookup and the path readout take an optional
+``ops.gather.GatherRows`` plan each, whose backward runs on kernel A2
+instead of scattering (the trainers pass them; the embedder's f64
+forward does not).
 
 The raw parameters are those of gnnpe_tpu's ``PathGNNParams``:
 ``w_self``, ``w_nbr``, ``bias`` (one per layer) and ``embed``.
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gnnpe_tpu_torch.ops.gather import GatherRows
 from gnnpe_tpu_torch.utils.device import as_device
 
 ACTIVATIONS = ("identity", "relu", "softplus")
@@ -154,11 +159,15 @@ class PathGNN(nn.Module):
         return self
 
     # ------------------------------------------------------------------
-    def vertex_embeddings(self, labels: torch.Tensor,
-                          aggregate: Callable) -> torch.Tensor:
+    def vertex_embeddings(self, labels: torch.Tensor, aggregate: Callable,
+                          labels_plan: Optional[GatherRows] = None
+                          ) -> torch.Tensor:
         """Per-vertex features after message passing; ``aggregate`` is
-        the neighbour sum h ↦ A h."""
-        h = self._pos(self.embed)[labels]
+        the neighbour sum h ↦ A h.  ``labels_plan``, a ``GatherRows``
+        built from ``labels``, makes the label lookup's backward
+        scatter-free (kernel A2 on a card); without one it is
+        ``embed[labels]``."""
+        h = _take(self._pos(self.embed), labels, labels_plan)
         for i in range(self.num_layers):
             ws = self._pos(self.w_self[i])
             wn = self._pos(self.w_nbr[i])
@@ -167,34 +176,65 @@ class PathGNN(nn.Module):
         return h
 
     def path_embeddings(self, labels: torch.Tensor, paths: torch.Tensor,
-                        aggregate: Callable) -> torch.Tensor:
+                        aggregate: Callable,
+                        labels_plan: Optional[GatherRows] = None,
+                        paths_plan: Optional[GatherRows] = None
+                        ) -> torch.Tensor:
         """PDE readout: vertex features concatenated along each path
-        row, f32 [P, L·D]."""
-        h = self.vertex_embeddings(labels, aggregate)
+        row, f32 [P, L·D].  ``paths_plan``, a ``GatherRows`` built from
+        ``paths`` read flat, does for the readout what ``labels_plan``
+        does for the label lookup."""
+        h = self.vertex_embeddings(labels, aggregate, labels_plan)
         p, l = paths.shape
-        return h[paths.reshape(-1)].reshape(p, l * self.dim)
+        return _take(h, paths.reshape(-1), paths_plan).reshape(
+            p, l * self.dim)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor,
+          plan: Optional[GatherRows]) -> torch.Tensor:
+    """``x[idx]``, through ``plan`` where one is given (built from
+    ``idx``: its entry count is checked, not its entries)."""
+    if plan is None:
+        return x[idx]
+    if plan.idx.numel() != idx.numel():
+        raise ValueError(f"a plan of {plan.idx.numel()} entries for an "
+                         f"index of {idx.numel()}")
+    return plan(x)
+
+
+def pair_rows(pde: torch.Tensor, pairs: Sequence[torch.Tensor]) -> list:
+    """``pde[p[:, 0]]``, ``pde[p[:, 1]]`` for each ``p`` of ``pairs``, in
+    that order, by one gather: the rows change every batch, so no plan
+    pays, and one gather's backward zeroes a ``pde``-sized gradient once
+    where four would each zero one and then be added up."""
+    cols = [c for p in pairs for c in (p[:, 0], p[:, 1])]
+    return list(pde[torch.cat(cols)].split([len(c) for c in cols]))
 
 
 def dominance_loss(model: PathGNN, labels: torch.Tensor,
                    paths: torch.Tensor, subpath_pairs: torch.Tensor,
                    aggregate: Callable, margin: float = 0.0,
                    negative_pairs: Optional[torch.Tensor] = None,
-                   neg_margin: float = 0.1) -> torch.Tensor:
+                   neg_margin: float = 0.1,
+                   labels_plan: Optional[GatherRows] = None,
+                   paths_plan: Optional[GatherRows] = None) -> torch.Tensor:
     """gnnpe_tpu's self-supervised dominance objective: a squared hinge
     on pde_i ≤ pde_j over ``subpath_pairs`` rows (i, j), an
     anti-collapse term and, with ``negative_pairs``, a softplus reward
     for a scale-normalised dominance violation on provable non-matches.
     ``amax`` splits the gradient among ties evenly, as ``jnp.max``
-    does."""
-    pde = model.path_embeddings(labels, paths, aggregate)
-    pi = pde[subpath_pairs[:, 0]]
-    pj = pde[subpath_pairs[:, 1]]
+    does.  The plans go to ``path_embeddings``."""
+    pde = model.path_embeddings(labels, paths, aggregate, labels_plan,
+                                paths_plan)
+    pairs = [subpath_pairs]
+    if negative_pairs is not None:
+        pairs.append(negative_pairs)
+    pi, pj, *neg = pair_rows(pde, pairs)
     violation = torch.clamp(pi - pj + margin, min=0.0)
     anti_collapse = torch.clamp(1.0 - pde.mean(0), min=0.0)
     loss = (violation ** 2).mean() + 0.01 * (anti_collapse ** 2).mean()
     if negative_pairs is not None:
-        ni = pde[negative_pairs[:, 0]]
-        nj = pde[negative_pairs[:, 1]]
+        ni, nj = neg
         sep = torch.amax(ni - nj, dim=1) / (nj.abs().mean(1) + 1e-6)
         loss = loss + softplus(neg_margin - sep).mean()
     return loss

@@ -17,15 +17,17 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gnnpe_tpu_torch.graph.csr import CSRGraph, to_device
 from gnnpe_tpu_torch.models.gnn import PathGNN, dominance_loss
+from gnnpe_tpu_torch.ops.gather import GatherRows
 from gnnpe_tpu_torch.ops.mt19937 import label_feature_table
 from gnnpe_tpu_torch.utils.device import as_device
+from gnnpe_tpu_torch.utils.profiling import annotate
 
 
 def sample_dominance_pairs(graph: CSRGraph, paths: np.ndarray,
@@ -178,6 +180,18 @@ def _aggregate(graph: CSRGraph, aggregation: str, device):
                      f"{aggregation!r}")
 
 
+def readout_plans(model: PathGNN, graph: CSRGraph, paths: np.ndarray
+                  ) -> Tuple[GatherRows, GatherRows]:
+    """The trainer's two fixed gathers as ``GatherRows`` plans on the
+    model's device: the label lookup (``graph.labels`` into the model's
+    label table) and the path readout (``paths`` read flat into the
+    graph's vertex rows)."""
+    return (GatherRows.build(graph.labels, model.labels_count, model.device,
+                             name="readout.labels"),
+            GatherRows.build(paths, graph.num_vertices, model.device,
+                             name="readout.paths"))
+
+
 def fit(model: PathGNN, graph: CSRGraph, paths: np.ndarray,
         num_steps: int = 100, batch_size: int = 1024,
         learning_rate: float = 1e-3, seed: int = 0,
@@ -200,7 +214,11 @@ def fit(model: PathGNN, graph: CSRGraph, paths: np.ndarray,
     ``device``'s prices (ops/ell.py:_device_constants: measured on a
     CUDA device).
     negatives=True adds the discriminative term over NLF-violating
-    candidate pairs (sample_negative_pairs)."""
+    candidate pairs (sample_negative_pairs).
+    The label lookup and the path readout go through ``readout_plans``,
+    built once before the step loop, so their backward is kernel A2's
+    walk of the transposed index (``launches_per_backward`` each a step
+    on a card) and no scatter, on either aggregation."""
     device = as_device(device)
     if model.device != device:
         raise ValueError(f"model is on {model.device}, fit asked for "
@@ -224,6 +242,7 @@ def fit(model: PathGNN, graph: CSRGraph, paths: np.ndarray,
     aggregate = _aggregate(graph, aggregation, device)
     labels = torch.from_numpy(graph.labels).to(device).long()
     paths_t = torch.from_numpy(np.asarray(paths, np.int64)).to(device)
+    labels_plan, paths_plan = readout_plans(model, graph, paths)
     pairs_all = sample_dominance_pairs(graph, paths,
                                        num_pairs=batch_size * 8,
                                        seed=seed)
@@ -240,28 +259,30 @@ def fit(model: PathGNN, graph: CSRGraph, paths: np.ndarray,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    done = 0
-    while done < num_steps:
-        k = min(chunk, num_steps - done)
-        # Drawn for the whole chunk, as gnnpe_tpu draws for its scan.
-        batches = torch.from_numpy(pairs_all[rng.randint(
-            len(pairs_all), size=(chunk, batch_size))]).to(device).long()
-        negs = (torch.from_numpy(neg_all[rng.randint(
-            len(neg_all), size=(chunk, batch_size))]).to(device).long()
-            if use_neg else None)
-        losses = []
-        for s in range(k):
-            opt.zero_grad(set_to_none=True)
-            loss = dominance_loss(
-                model, labels, paths_t, batches[s], aggregate,
-                negative_pairs=negs[s] if use_neg else None,
-                neg_margin=neg_margin)
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-        state.history.extend(torch.stack(losses).tolist())
-        state.step += k
-        done += k
+    with annotate("fit.steps", device):
+        done = 0
+        while done < num_steps:
+            k = min(chunk, num_steps - done)
+            # Drawn for the whole chunk, as gnnpe_tpu draws for its scan.
+            batches = torch.from_numpy(pairs_all[rng.randint(
+                len(pairs_all), size=(chunk, batch_size))]).to(device).long()
+            negs = (torch.from_numpy(neg_all[rng.randint(
+                len(neg_all), size=(chunk, batch_size))]).to(device).long()
+                if use_neg else None)
+            losses = []
+            for s in range(k):
+                opt.zero_grad(set_to_none=True)
+                loss = dominance_loss(
+                    model, labels, paths_t, batches[s], aggregate,
+                    negative_pairs=negs[s] if use_neg else None,
+                    neg_margin=neg_margin, labels_plan=labels_plan,
+                    paths_plan=paths_plan)
+                loss.backward()
+                opt.step()
+                losses.append(loss.detach())
+            state.history.extend(torch.stack(losses).tolist())
+            state.step += k
+            done += k
     state.steps_s += time.perf_counter() - t0
     return state
 

@@ -7,7 +7,10 @@ rows back per vertex through one or more further tables; pads are -1.
 ``HierarchicalEll.on(device)`` uploads it once.  On a CUDA tensor each
 level is one launch of the gather-sum kernel below: the level's input
 gets one zero row past its end and every pad points there, which adds
-exactly the 0.0 that the masked plain form adds for a pad.  On a CPU
+exactly the 0.0 that the masked plain form adds for a pad; the levels
+share one work buffer and their launches are laid out once
+(``WalkPlan``).  A rectangular layout (``num_sources``) gathers from
+another row count than it writes: ops/gather.py's transposed index.  On a CPU
 tensor each level is that masked plain form.
 
 The host layout (``build_binned_ell``, the ``BinnedEll`` tables) is the
@@ -594,7 +597,8 @@ def gather_sum(buf: torch.Tensor, tbl: torch.Tensor,
     [0, R) (pads point at row 0; the caller answers for the bounds) and
     an f32 ``padcnt`` [N] or None.  ``out``, when given, is a contiguous
     [N, D] row range of a larger output.  (``BinnedEllDevice`` does not
-    come through here: it launches whole levels.)"""
+    come through here, nor does ``HierarchicalEllDevice``: they launch
+    whole levels.)"""
     _check(buf, tbl, padcnt, out)
     if buf.device.type == "cpu":
         return gather_sum_plain(buf, tbl, padcnt, out)
@@ -841,12 +845,16 @@ class HierarchicalEll:
     vertex into one row; each further level sums a vertex's rows of the
     level before through a table of ``level2_width`` slots (recursively
     while a vertex has more rows than that); the last level has one row
-    per vertex."""
+    per vertex.  Level 1 reads ``num_sources`` rows: ``num_vertices``
+    where None (the square layout of an adjacency), else the rows a
+    rectangular layout gathers from (ops/gather.py: one per entry of a
+    gather's index)."""
     levels: List[EllLayout]
     num_vertices: int
     num_slots: int          # total gather slots (padding overhead metric)
     slot_arc: np.ndarray = None   # int32[level-1 slots]: CSR arc index
     #                               per slot, -1 pad (ops/sddmm.py)
+    num_sources: Optional[int] = None
 
     def __post_init__(self):
         self._on: Dict[torch.device, "HierarchicalEllDevice"] = {}
@@ -864,8 +872,11 @@ class HierarchicalEll:
 
 
 def build_ell(offsets: np.ndarray, neighbors: np.ndarray,
-              width: int = 8, level2_width: int = 8) -> HierarchicalEll:
-    """Build the hierarchical layout from CSR (host, O(E))."""
+              width: int = 8, level2_width: int = 8,
+              num_sources: Optional[int] = None) -> HierarchicalEll:
+    """Build the hierarchical layout from CSR (host, O(E)); with
+    ``num_sources`` the neighbours index that many source rows and the
+    layout is rectangular."""
     num_v = len(offsets) - 1
     deg = np.diff(offsets).astype(np.int64)
 
@@ -919,7 +930,8 @@ def build_ell(offsets: np.ndarray, neighbors: np.ndarray,
         cur_start = sub_start
 
     return HierarchicalEll(levels=levels, num_vertices=num_v,
-                           num_slots=int(slots), slot_arc=slot_arc)
+                           num_slots=int(slots), slot_arc=slot_arc,
+                           num_sources=num_sources)
 
 
 def masked_level_plain(h: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
@@ -937,6 +949,24 @@ def masked_level_plain(h: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+@dataclass(frozen=True)
+class WalkPlan:
+    """The kernel route's launches of one walk, laid out once: every
+    level's input and the output in one work buffer of ``work_rows``
+    rows, each region starting at a multiple of 4 rows (so each is
+    16-byte aligned for any row width), each input followed by the zero
+    row its pads read (``zero_rows``).  Per level, its launch
+    descriptors and the first rows of its input and its output."""
+    levels: Tuple[Tuple[list, int, int], ...]
+    zero_rows: torch.Tensor     # int64, on the layout's device
+    out_row: int
+    work_rows: int
+
+
+def _round4(rows: int) -> int:
+    return -(-rows // 4) * 4
+
+
 @dataclass
 class HierarchicalEllDevice:
     """A ``HierarchicalEll`` on one device.  Per level, ``tables`` holds
@@ -949,15 +979,20 @@ class HierarchicalEllDevice:
     num_vertices: int
     num_slots: int
     slot_arc: Optional[torch.Tensor] = None
+    _walks: Dict[Tuple[int, int], WalkPlan] = field(default_factory=dict,
+                                                    repr=False)
 
     @classmethod
     def from_host(cls, layout: HierarchicalEll,
                   device) -> "HierarchicalEllDevice":
         """Upload ``layout`` once; checks every table against the rows
-        it gathers from and that the last level has a row per vertex."""
+        it gathers from (level 1: ``layout.num_sources``, or a row per
+        vertex where that is None) and that the last level has a row per
+        vertex."""
         device = as_device(device)
         tables, src_rows = [], []
-        rows = layout.num_vertices
+        rows = (layout.num_vertices if layout.num_sources is None
+                else layout.num_sources)
         for lvl in layout.levels:
             tbl = np.asarray(lvl.tbl)
             if tbl.ndim != 2:
@@ -1001,26 +1036,57 @@ class HierarchicalEllDevice:
             h = masked_level_plain(h, tbl)
         return h
 
+    def walk_plan(self, start: int, lanes: int) -> WalkPlan:
+        """The ``WalkPlan`` of levels ``start``... at ``lanes`` lanes a
+        row, built at the first call."""
+        key = (start, lanes)
+        if key not in self._walks:
+            levels, zeros = [], []
+            in_row, in_rows, row = 0, self.src_rows[start], 0
+            for tbl in self.tables[start:]:
+                zeros.append(in_row + in_rows)
+                row = _round4(in_row + in_rows + 1)
+                level = PlanLevel((PlanTable(tbl, None, 0),), None, in_rows)
+                levels.append((level.descriptors(lanes), in_row, row))
+                in_row, in_rows = row, tbl.shape[0]
+            self._walks[key] = WalkPlan(
+                levels=tuple(levels), zero_rows=torch.tensor(
+                    zeros, dtype=torch.int64, device=self.device),
+                out_row=in_row, work_rows=in_row + in_rows)
+        return self._walks[key]
+
     def walk(self, h: torch.Tensor, start: int = 0) -> torch.Tensor:
         """Levels ``start``... from ``h``: one launch of the gather-sum
-        kernel per level on a CUDA tensor (f32), the masked plain form on
-        a CPU tensor; any other device raises."""
+        kernel per level on a CUDA tensor (f32), through the
+        ``walk_plan`` laid out once, the masked plain form on a CPU
+        tensor; any other device raises."""
         self._check(h, self.src_rows[start])
         if h.device.type == "cpu":
             return self.walk_plain(h, start)
         if h.device.type != "cuda":
             raise ValueError(f"no gather_sum kernel for device {h.device}")
+        if h.dtype != torch.float32:
+            raise TypeError(f"the kernel route takes float32, got {h.dtype}")
         d = h.shape[1]
-        buf = torch.empty((h.shape[0] + 1, d), dtype=h.dtype, device=h.device)
-        buf[:-1] = h
-        buf[-1] = 0.0
-        for tbl in self.tables[start:]:
-            out = torch.empty((tbl.shape[0] + 1, d), dtype=h.dtype,
-                              device=h.device)
-            out[-1] = 0.0
-            gather_sum(buf, tbl, None, out=out[:-1])
-            buf = out
-        return buf[:-1]
+        vec, lanes = pack_shape(d, 4)
+        plan = self.walk_plan(start, lanes)
+        work = torch.empty((plan.work_rows, d), dtype=h.dtype,
+                           device=h.device)
+        if not work.numel():
+            return work[plan.out_row:]
+        base = work.data_ptr()
+        if pack_shape(d, 4, base) != (vec, lanes):
+            raise RuntimeError("the walk's work buffer is not 16-byte "
+                               "aligned")
+        work[:h.shape[0]] = h
+        work.index_fill_(0, plan.zero_rows, 0.0)
+        device = h.device.index
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        for launches, in_row, out_row in plan.levels:
+            for desc, blocks in launches:
+                _launch(desc, blocks, device, base + in_row * d * 4,
+                        base + out_row * d * 4, d, vec, lanes, stream)
+        return work[plan.out_row:]
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """Aggregated neighbour features [V, D] of ``x`` [V, D]."""

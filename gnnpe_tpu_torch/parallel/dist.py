@@ -34,7 +34,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from gnnpe_tpu_torch.models.gnn import PathGNN
+from gnnpe_tpu_torch.models.gnn import PathGNN, pair_rows
+from gnnpe_tpu_torch.ops.gather import PlanCache
 from gnnpe_tpu_torch.ops.spmm import CsrPair, CsrSum
 from gnnpe_tpu_torch.parallel.binned_halo import BinnedHaloPlan
 from gnnpe_tpu_torch.parallel.collectives import (AllGatherRows,
@@ -102,7 +103,8 @@ def pair_loss(pde: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
     """The dominance objective on path embeddings: a squared hinge on
     pde_i ≤ pde_j over ``pairs`` rows (i, j) and the anti-collapse
     term."""
-    violation = torch.clamp(pde[pairs[:, 0]] - pde[pairs[:, 1]], min=0.0)
+    pi, pj = pair_rows(pde, [pairs])
+    violation = torch.clamp(pi - pj, min=0.0)
     anti_collapse = torch.clamp(1.0 - pde.mean(0), min=0.0)
     return (violation ** 2).mean() + 0.01 * (anti_collapse ** 2).mean()
 
@@ -131,8 +133,15 @@ def make_distributed_train_step(model: PathGNN, mesh, optimizer,
     this rank's shard of the batch (pair indices are rows of that
     shard).  The loss returned is the mean over the axes; the gradient
     applied is the sum over the batch shards (see the module
-    docstring).  ``step.launches`` is the (A1, A2) kernel launches of one
-    step on a CUDA device, forward and backward."""
+    docstring).  The label lookup and the path readout go through
+    ``GatherRows`` plans (ops/gather.py: their backward is kernel A2's
+    walk of the transposed index, no scatter), each kept in a one-entry
+    cache keyed on the ``labels`` and ``paths`` tensors the step is
+    handed, so a step given the same tensors again builds nothing.
+    ``step.launches`` is the (A1, A2) kernel launches of one step on a
+    CUDA device, forward and backward: the aggregation's, plus the
+    plans' of the last call (the aggregation's alone before the
+    first)."""
     names = mesh.mesh_dim_names or ()
     axes = []
     for a in (graph_axis, batch_axis):
@@ -158,9 +167,11 @@ def make_distributed_train_step(model: PathGNN, mesh, optimizer,
         aggregate = lambda h: AllReduceSum.apply(CsrSum.apply(h, pair),
                                                  group)
         per_hop = (2, 0)        # the arc shard's sum and its transpose
+        labels_cache = PlanCache(model.labels_count, device,
+                                 "readout.labels")
 
-        def path_embeddings(labels, paths):
-            return model.path_embeddings(labels, paths, aggregate)
+        def vertex_embeddings(labels, labels_plan):
+            return model.vertex_embeddings(labels, aggregate, labels_plan)
     else:
         if plan is None:
             raise ValueError(f"backend {backend!r} needs plan=")
@@ -173,12 +184,15 @@ def make_distributed_train_step(model: PathGNN, mesh, optimizer,
             plan.own_vertex_ids()[rank].astype(np.int64)).to(device)
         rows_v = torch.from_numpy(
             plan.row_of_vertex().astype(np.int64)).to(device)
+        labels_cache = PlanCache(model.labels_count, device,
+                                 "readout.labels",
+                                 select=lambda labels: labels[own_vids])
 
-        def path_embeddings(labels, paths):
-            h_own = model.vertex_embeddings(labels[own_vids], dev_fn)
-            h_full = AllGatherRows.apply(h_own, group)[rows_v]
-            p, l = paths.shape
-            return h_full[paths.reshape(-1)].reshape(p, l * model.dim)
+        def vertex_embeddings(labels, labels_plan):
+            h_own = model.vertex_embeddings(labels[own_vids], dev_fn,
+                                            labels_plan)
+            return AllGatherRows.apply(h_own, group)[rows_v]
+    paths_cache = PlanCache(num_vertices, device, "readout.paths")
 
     params = list(model.parameters())
     groups = [axis_group(mesh, a) for a in axes]
@@ -188,8 +202,15 @@ def make_distributed_train_step(model: PathGNN, mesh, optimizer,
                if graph_axis in axes and batch_axis != graph_axis else 1)
 
     def step(labels, paths, pairs) -> torch.Tensor:
+        labels_plan, paths_plan = labels_cache(labels), paths_cache(paths)
+        step.launches = (agg_launches[0], agg_launches[1]
+                         + labels_plan.launches_per_backward
+                         + paths_plan.launches_per_backward)
         optimizer.zero_grad(set_to_none=True)
-        loss = pair_loss(path_embeddings(labels, paths), pairs)
+        h = vertex_embeddings(labels, labels_plan)
+        rows, length = paths.shape
+        loss = pair_loss(paths_plan(h).reshape(rows, length * model.dim),
+                         pairs)
         loss.backward()
         flat = torch.cat([p.grad.reshape(-1) for p in params]
                          + [loss.detach().reshape(1)])
@@ -203,5 +224,6 @@ def make_distributed_train_step(model: PathGNN, mesh, optimizer,
         optimizer.step()
         return flat[-1] / ranks
 
-    step.launches = tuple(model.num_layers * k for k in per_hop)
+    agg_launches = tuple(model.num_layers * k for k in per_hop)
+    step.launches = agg_launches
     return step

@@ -342,6 +342,13 @@ paths = np.random.RandomState(0).randint(0, g.num_vertices, (64, 3))
 st = train.fit(model, g, paths, num_steps=3, batch_size=32,
                aggregation="binned", negatives=True, device="cpu")
 assert st.step == 3 and embedder.model_embedder(model, "cpu")(q).vde.shape
+# The readout's plan: a gather whose backward walks the transposed index.
+from gnnpe_tpu_torch.ops.gather import GatherRows
+plan = GatherRows.build(paths, g.num_vertices, "cpu")
+x = torch.rand(g.num_vertices, 2, requires_grad=True)
+plan(x).sum().backward()
+assert torch.equal(x.grad[:, 0], torch.bincount(torch.from_numpy(
+    paths.reshape(-1)), minlength=g.num_vertices).float())
 # The multi-device layer on two gloo ranks (each rank checks itself too).
 from gnnpe_tpu_torch.parallel.dryrun import dryrun_multichip
 dryrun_multichip(2, "cpu", "cpu")

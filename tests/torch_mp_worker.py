@@ -317,3 +317,99 @@ def train(rank, world, expected):
             np.testing.assert_allclose(a.detach().numpy(), b, rtol=1e-4,
                                        atol=1e-5, err_msg="graph x batch")
     print(f"train rank {rank}/{world} OK")
+
+
+def readout(rank, world, seed):
+    """Three steps of each backend through the readout plan caches, on
+    paths that all run through vertex 0 (72 entries of one row a rank at
+    4 ranks, 288 at one): losses within 1e-5 and parameters within rtol
+    1e-4 / atol 1e-5 of the single device's three steps with the plans
+    (``fit``'s inner loop, the shards' losses summed) and without them
+    (``x[idx]``).  Each plan is built once for the tensors handed in
+    again, once more for a new ``paths`` tensor, and ``step.launches``
+    adds the plans' A2 launches to the aggregation's."""
+    from gnnpe_tpu_torch.ops import gather
+    from gnnpe_tpu_torch.ops.gather import GatherRows
+    mesh = make_mesh(world, axes=("graph",), shape=(world,), device="cpu")
+    g = toy_graph(num_vertices=48, num_labels=6, seed=3)
+    rng = np.random.RandomState(seed)
+    paths = rng.randint(0, g.num_vertices, (288, 3))
+    paths[:, 1] = 0
+    pairs = rng.randint(0, 288 // 4, (64, 2))
+    labels = torch.from_numpy(g.labels.astype(np.int64))
+    per, ppr = len(paths) // world, len(pairs) // world
+
+    def fresh():
+        model = PathGNN(dim=8, num_layers=2, labels_count=6,
+                        activation="softplus", device="cpu")
+        model.init(torch.Generator().manual_seed(seed))
+        return model, torch.optim.SGD(model.parameters(), lr=1e-2)
+
+    off, nbr, _, _ = to_device(g, "cpu")
+    agg = lambda h: NeighborSum.apply(off, nbr, h)
+    shards = [torch.from_numpy(paths[r * per:(r + 1) * per])
+              for r in range(world)]
+    labels_plan = GatherRows.build(labels, 6, "cpu")
+    singles = {}
+    for planned in (True, False):
+        model, opt = fresh()
+        plans = [GatherRows.build(s, g.num_vertices, "cpu") for s in shards]
+        for _ in range(3):
+            opt.zero_grad()
+            loss = sum(pair_loss(model.path_embeddings(
+                labels, s, agg, labels_plan if planned else None,
+                p if planned else None),
+                torch.from_numpy(pairs[r * ppr:(r + 1) * ppr]))
+                for r, (s, p) in enumerate(zip(shards, plans)))
+            loss.backward()
+            opt.step()
+        singles[planned] = (float(loss) / world,
+                            [p.detach().numpy().copy()
+                             for p in model.leaves()])
+
+    builds = []
+    build = GatherRows.build
+
+    def counted(cls, idx, *args, **kw):
+        builds.append(int(np.prod(idx.shape)))
+        return build(idx, *args, **kw)
+
+    gather.GatherRows.build = classmethod(counted)
+    paths_t = shard_along(mesh, paths, "graph", "cpu")
+    pairs_t = shard_along(mesh, pairs, "graph", "cpu")
+    for backend in ("psum", "halo", "binned_halo"):
+        model, opt = fresh()
+        kw = {}
+        if backend == "psum":
+            kw["arcs"] = shard_edges(*g.coo(), world)
+            own = labels
+        else:
+            plan = (HaloPlan if backend == "halo" else BinnedHaloPlan).build(
+                g.offsets, g.neighbors, np.arange(48) % world, world)
+            kw["plan"] = plan
+            own = labels[torch.from_numpy(
+                plan.own_vertex_ids()[rank].astype(np.int64))]
+        step = make_distributed_train_step(
+            model, mesh, opt, g.num_vertices, batch_axis="graph",
+            backend=backend, **kw)
+        agg_launches = step.launches
+        del builds[:]
+        for _ in range(3):
+            loss = float(step(labels, paths_t, pairs_t))
+        assert builds == [len(own), paths_t.numel()], (backend, builds)
+        readout_launches = (build(own, 6, "cpu").launches_per_backward
+                            + build(paths_t, 48, "cpu").launches_per_backward)
+        assert step.launches == (agg_launches[0], agg_launches[1]
+                                 + readout_launches), (backend, step.launches)
+        leaves = [p.detach().numpy() for p in model.leaves()]
+        for planned, (want_loss, want_leaves) in singles.items():
+            assert abs(loss - want_loss) < 1e-5, (backend, planned, loss,
+                                                  want_loss)
+            for a, b in zip(leaves, want_leaves):
+                np.testing.assert_allclose(
+                    a, b, rtol=1e-4, atol=1e-5,
+                    err_msg=f"{backend} vs single device, plans={planned}")
+        step(labels, paths_t.clone(), pairs_t)
+        assert builds == [len(own), paths_t.numel(), paths_t.numel()]
+    gather.GatherRows.build = build
+    print(f"readout rank {rank}/{world} OK")
