@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Requires a CUDA device and prints the card's name and power limit.
-2. Builds the CUDA kernels from gnnpe_tpu_torch/csrc (and the host C++
+2. Builds the CUDA kernels from gnnpe_tpu_torch/csrc (A1 spmm_csr, A2
+   ell_gather_sum and the readout's segment_sum; and the host C++
    refinement engine).
 3. Kernel phase: the neighbour-sum SpMM (A1) against its plain PyTorch
    version on the card, on the dblp-rung graph — f64 at the VDE width
@@ -95,18 +96,20 @@
    plans, f32 D=2 and D=128: A1 with ``own_pad + 4·halo_pad`` source rows
    and ``own_pad`` output rows, A2 through ``RectBinned``'s launch plan)
    are held bit-equal to their plain versions and timed as in phases 3
-   and 8.  The phase's A1 and A2 launches are counted path by path —
-   the counts set to 0 after every oracle and single-device comparison,
-   so that only the multi-device layer's own launches are read — and
-   each must be exactly what the path says it launches (``agg.launches``
-   of a plan's aggregation, ``step.launches`` of a train step: the
-   aggregation's and the readout plans' backward levels; one A1 a query
-   for its VDE), at world size 1 and in every rank.
+   and 8.  The phase's A1, A2 and segment_sum launches are counted path
+   by path — the counts set to 0 after every oracle and single-device
+   comparison, so that only the multi-device layer's own launches are
+   read — and each must be exactly what the path says it launches
+   (``agg.launches`` of a plan's aggregation, ``step.launches`` of a
+   train step: the aggregation's A1 and A2 and the readout plans'
+   segment sums; one A1 a query for its VDE), at world size 1 and in
+   every rank.
 10. Train phase: ``train_payoff.run`` at the dblp rung (PGE, D=2, 300
    steps, binned aggregation, 8 held-out queries).  A2 must launch
    ``launches_per_apply`` times in every step's forward and in its
-   backward, and once a level of each readout plan (``readout_plans``:
-   the label lookup and the path readout) in the backward; every loss
+   backward, and the segment-sum kernel once for each readout plan
+   (``readout_plans``: the label lookup and the path readout) in the
+   backward; every loss
    finite, the last below the first, and the first
    and last equal to the values earlier revisions of the port recorded
    for this seed; every trained answer equal to the fixed-VDE answer;
@@ -115,7 +118,8 @@
    a numpy forward of the same weights.  Then a 50-step
    ``aggregation="segment"`` fit from the same initial weights and
    batches (the binned run's first chunk) must track the binned loss
-   history within rtol 1e-3, launching A2 for the readout plans only.  ``fit`` prices the binned layout's hubs
+   history within rtol 1e-3, launching no A2 and the segment-sum kernel
+   for the readout plans.  ``fit`` prices the binned layout's hubs
    with the card's measured constants (phase 14); that host layout must
    equal the one of gnnpe_tpu's "cpu" row, which the recorded losses
    came from (no hubs, the same permutation and tables).
@@ -138,10 +142,12 @@
 13. Readout rows and profile phase: the trainer's two fixed gathers at
    dblp (the label lookup, 317,080 entries into 15 rows, and the readout
    of 500,000 paths, 1,500,000 entries into 317,080 rows), f32 D=2: each
-   ``GatherRows`` plan's backward through kernel A2 (one launch a level
-   of the transposed index's uniform ELL) bit-equal to its masked plain
-   form, timed as in phase 3 beside ``index_add_`` and torch's own
-   backward of ``x[idx]`` (``index_put_`` with ``accumulate=True``).
+   ``GatherRows`` plan's backward through the segment-sum kernel (one
+   launch) bit-equal to ``segment_sum_plain`` and bit-identical over 3
+   calls, timed as in phase 3 beside ``index_add_`` and torch's own
+   backward of ``x[idx]`` (``index_put_`` with ``accumulate=True``), and
+   in turns with the earlier route of the same call, kernel A2's walk of
+   the transposed index as a uniform-width ELL (one launch a level).
    Then ``utils/profiling.trace`` around 5 warm binned ``fit`` steps (the
    train phase's model and pairs), its top device kernels and ops by
    share of device time, each readout backward's range
@@ -181,8 +187,9 @@ those candidates; the table and device phases share the oracle of the
 phase before them.  Each kernel's launch count over the main path of
 the phases that run it (A1: PE, PE table, PE streamed, PGE, PGE device,
 both pre-verify runs, multi-device, ladder, train and bench; A2:
-multi-device, train (aggregation and readout), the uniform-ELL
-pre-verify and attention, and bench) must be > 0, and
+multi-device, train (aggregation), the uniform-ELL pre-verify and
+attention, and bench; segment_sum: train, the segment fit and
+multi-device) must be > 0, and
 the index tensors must live on the card.
 At the end neither ``jax`` nor any module of ``gnnpe_tpu`` may have been
 imported.  Any failure exits non-zero.  The full record is printed as one
@@ -207,7 +214,7 @@ QUERY_SEEDS = range(8)
 QUERY_SIZE = 8
 MODE_QUERIES = range(100, 164)   # the PE layouts' search comparison
 BLOCK_SIZE = 512
-KERNELS = ("spmm_csr", "ell_gather_sum")
+KERNELS = ("spmm_csr", "ell_gather_sum", "segment_sum")
 PREVERIFY_ROUNDS = 2
 # The streamed phase's block pool: about a quarter of the dblp index's
 # 118,711 blocks, so that misses, hits and evictions all happen.
@@ -1306,16 +1313,22 @@ def _timed_steps(step, labels, paths_t, batches, device) -> tuple:
     return losses, (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
 
 
-def _launch_reader(spmm, ell, what: str, counts: dict):
-    """``read(path, a1, a2)``: the (A1, A2) launches since the last
-    reading must be exactly (a1, a2); they are kept in ``counts[path]``
-    and the counts go back to 0, so that the next path is read alone."""
-    def read(path, a1, a2):
-        got = (spmm.LAUNCHES, ell.LAUNCHES)
-        check(got == (a1, a2), f"{what}, {path}: launched {got} (A1, A2), "
-              f"the path says {(a1, a2)}")
+def _zero_counts(*modules) -> None:
+    for m in modules:
+        m.LAUNCHES = 0
+
+
+def _launch_reader(spmm, ell, gather, what: str, counts: dict):
+    """``read(path, a1, a2, seg=0)``: the (A1, A2, segment_sum) launches
+    since the last reading must be exactly (a1, a2, seg); they are kept
+    in ``counts[path]`` and the counts go back to 0, so that the next
+    path is read alone."""
+    def read(path, a1, a2, seg=0):
+        got = (spmm.LAUNCHES, ell.LAUNCHES, gather.LAUNCHES)
+        check(got == (a1, a2, seg), f"{what}, {path}: launched {got} (A1, "
+              f"A2, segment_sum), the path says {(a1, a2, seg)}")
         counts[path] = list(got)
-        spmm.LAUNCHES = ell.LAUNCHES = 0
+        _zero_counts(spmm, ell, gather)
     return read
 
 
@@ -1331,7 +1344,7 @@ def multi_device_phase(g, queries, device, record, pe_oracle, pge_oracle,
     import torch.distributed as dist
     from gnnpe_tpu_torch.graph.csr import to_device
     from gnnpe_tpu_torch.graph.partition import partition_graph
-    from gnnpe_tpu_torch.ops import ell, spmm
+    from gnnpe_tpu_torch.ops import ell, gather, spmm
     from gnnpe_tpu_torch.parallel.binned_halo import BinnedHaloPlan
     from gnnpe_tpu_torch.parallel.dist import (make_distributed_train_step,
                                                shard_edges)
@@ -1341,7 +1354,8 @@ def multi_device_phase(g, queries, device, record, pe_oracle, pge_oracle,
                                                maybe_distributed_init)
     rec = record["multi"] = {"world1_launches": {}}
     t_phase = time.perf_counter()
-    read = _launch_reader(spmm, ell, "multi world 1", rec["world1_launches"])
+    read = _launch_reader(spmm, ell, gather, "multi world 1",
+                          rec["world1_launches"])
     with tempfile.TemporaryDirectory(prefix="gnnpe_smoke_pg_") as tmp:
         maybe_distributed_init("cuda", init_method="file://"
                                + os.path.join(tmp, "store"), rank=0,
@@ -1356,7 +1370,7 @@ def multi_device_phase(g, queries, device, record, pe_oracle, pge_oracle,
 
         # Both engines over the mesh, packed and flat, both unions.
         t0 = time.perf_counter()
-        spmm.LAUNCHES = ell.LAUNCHES = 0
+        _zero_counts(spmm, ell, gather)
         search_ms = {}
         for variant, oracle in (("pe", pe_oracle), ("pge", pge_oracle)):
             eng = oracle["engine"]
@@ -1390,7 +1404,7 @@ def multi_device_phase(g, queries, device, record, pe_oracle, pge_oracle,
         for cls, exact in ((HaloPlan, True), (BinnedHaloPlan, False)):
             plan = cls.build(g.offsets, g.neighbors, one_shard, 1)
             agg = plan.make_aggregate(mesh, device)
-            spmm.LAUNCHES = ell.LAUNCHES = 0        # the oracle's launch
+            _zero_counts(spmm, ell, gather)         # the oracle's launch
             out = agg(torch.from_numpy(plan.shard_features(x)[0]).to(device))
             read(f"{cls.__name__} aggregation", *agg.launches[0])
             got = torch.from_numpy(plan.unshard_features(
@@ -1426,7 +1440,7 @@ def multi_device_phase(g, queries, device, record, pe_oracle, pge_oracle,
                       g.offsets, g.neighbors, one_shard, 1)))
             step = make_distributed_train_step(
                 model, mesh, opt, g.num_vertices, backend=backend, **kw)
-            spmm.LAUNCHES = ell.LAUNCHES = 0    # the single device's steps
+            _zero_counts(spmm, ell, gather)     # the single device's steps
             losses, ms = _timed_steps(step, labels, paths_t, batches, device)
             read(f"{backend} steps", *(MULTI_STEPS * k for k in step.launches))
             check(np.allclose(losses, want_losses, rtol=1e-3, atol=1e-5),
@@ -1440,9 +1454,10 @@ def multi_device_phase(g, queries, device, record, pe_oracle, pge_oracle,
               "binned) within rtol 1e-3: " + json.dumps(rec["world1_steps"]))
         dist.destroy_process_group()
     launches = tuple(sum(c[k] for c in rec["world1_launches"].values())
-                     for k in (0, 1))
+                     for k in (0, 1, 2))
     check(min(launches) > 0, f"multi world 1 launched {launches} kernels")
-    print("multi world 1: (A1, A2) launches, each path read alone and equal "
+    print("multi world 1: (A1, A2, segment_sum) launches, each path read "
+          "alone and equal "
           "to what it says it launches: " + json.dumps(rec["world1_launches"]))
 
     # The 4-way plans: their sizes, and both kernels at rank 0's shapes.
@@ -1480,8 +1495,12 @@ def multi_device_phase(g, queries, device, record, pe_oracle, pge_oracle,
             check(ranks[-1]["launches"][path][0] > 0,
                   f"multi: rank {r}, {path}: no A1 launch: {ranks[-1]}")
         for path in ("BinnedHaloPlan aggregation", "binned_halo steps"):
-            check(min(ranks[-1]["launches"][path]) > 0,
+            check(min(ranks[-1]["launches"][path][:2]) > 0,
                   f"multi: rank {r}, {path}: a kernel did not launch: "
+                  f"{ranks[-1]}")
+        for path in ("binned_halo steps", "halo steps", "psum steps"):
+            check(ranks[-1]["launches"][path][2] > 0,
+                  f"multi: rank {r}, {path}: no segment_sum launch: "
                   f"{ranks[-1]}")
     rec["ranks"] = ranks
     for f in os.listdir(os.path.dirname(index_file)):
@@ -1506,7 +1525,7 @@ def multi_rank(rank: int, world: int, exchange: str) -> None:
     from gnnpe_tpu_torch.graph.csr import to_device
     from gnnpe_tpu_torch.index import device_packed as dp
     from gnnpe_tpu_torch.io.datasets import load_dataset, sample_query
-    from gnnpe_tpu_torch.ops import ell, spmm
+    from gnnpe_tpu_torch.ops import ell, gather, spmm
     from gnnpe_tpu_torch.parallel.binned_halo import BinnedHaloPlan
     from gnnpe_tpu_torch.parallel.dist import (make_distributed_train_step,
                                                shard_edges)
@@ -1520,7 +1539,8 @@ def multi_rank(rank: int, world: int, exchange: str) -> None:
     queries = [sample_query(g, QUERY_SIZE, seed=s) for s in QUERY_SEEDS]
     mesh = make_mesh(world, axes=("graph",), shape=(world,), device="cpu")
     out = dict(rank=rank, launches={})
-    read = _launch_reader(spmm, ell, f"multi rank {rank}", out["launches"])
+    read = _launch_reader(spmm, ell, gather, f"multi rank {rank}",
+                          out["launches"])
 
     # This rank's block range of the saved index, and the 8 queries.
     eng = PEEngine(PEConfig.from_cli(l=2, e=2, n=MAX_ANSWERS), g, device)
@@ -1532,7 +1552,7 @@ def multi_rank(rank: int, world: int, exchange: str) -> None:
     out["index_bytes"] = int(sum(
         t.numel() * t.element_size()
         for t in eng.searcher.resident_tensors().values()))
-    spmm.LAUNCHES = ell.LAUNCHES = 0            # the data graph's VDE
+    _zero_counts(spmm, ell, gather)             # the data graph's VDE
     for union in ("host", "device"):
         ms = []
         for i, q in enumerate(queries):
@@ -1556,7 +1576,7 @@ def multi_rank(rank: int, world: int, exchange: str) -> None:
                                        ex["membership"], world)
         agg = plan.make_aggregate(mesh, device)
         own = torch.from_numpy(plan.shard_features(x)[rank]).to(device)
-        spmm.LAUNCHES = ell.LAUNCHES = 0            # the oracle's launch
+        _zero_counts(spmm, ell, gather)             # the oracle's launch
         got = agg(own)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1626,12 +1646,14 @@ def train_phase(g, device, record) -> tuple:
     returns the (A1, A2) launches of the run.  ``fit`` prices the binned
     layout's hubs with the card's measured constants; the recorded losses
     came from the layout of gnnpe_tpu's "cpu" row, so the two host
-    layouts must be one (no hubs, the same permutation and tables)."""
+    layouts must be one (no hubs, the same permutation and tables).
+    Returns the (A1, A2, segment_sum) launches of the run and the
+    segment_sum launches of the segment fit."""
     import torch
     from gnnpe_tpu_torch.frontends import train_payoff
     from gnnpe_tpu_torch.models.gnn import PathGNN
     from gnnpe_tpu_torch.models.train import fit, readout_plans
-    from gnnpe_tpu_torch.ops import ell, spmm
+    from gnnpe_tpu_torch.ops import ell, gather, spmm
     measured = ell.build_binned_ell(g.offsets, g.neighbors, device=device)
     pinned = ell.build_binned_ell(g.offsets, g.neighbors,
                                   hub_prices=ell.HUB_PRICES)
@@ -1649,18 +1671,18 @@ def train_phase(g, device, record) -> tuple:
     launches_per_apply = ell.BinnedEllDevice.from_host(
         measured, "cpu").launches_per_apply
     del measured, pinned
-    spmm.LAUNCHES = 0
-    ell.LAUNCHES = 0
+    _zero_counts(spmm, ell, gather)
     t0 = time.perf_counter()
     pay = train_payoff.run("dblp", queries=TRAIN_QUERIES, steps=TRAIN_STEPS,
                            device=device)
     wall_s = time.perf_counter() - t0
-    launches = (spmm.LAUNCHES, ell.LAUNCHES)
+    launches = (spmm.LAUNCHES, ell.LAUNCHES, gather.LAUNCHES)
     fixed_row, trained_row = pay.rows
     hist = pay.state.history
     aggregation = trained_row["aggregation"]
     rec = dict(wall_s=wall_s, spmm_launches=launches[0],
-               ell_launches=launches[1], aggregation=aggregation,
+               ell_launches=launches[1], segment_sum_launches=launches[2],
+               aggregation=aggregation,
                hubs_with_measured_prices=hubs,
                train_paths=int(len(pay.train_paths)),
                train_s=trained_row["train_s"], step_ms=trained_row["step_ms"],
@@ -1684,20 +1706,22 @@ def train_phase(g, device, record) -> tuple:
           f"loss {hist[0]:.6f} -> {hist[-1]:.6f} left the recorded "
           f"{TRAIN_LOSS_FIRST_LAST}")
 
-    # The readout plans fit builds for these paths, laid out on the host
-    # (their launches depend on the tables' shapes only).
+    # The readout plans fit builds for these paths, laid out on the host.
     cpu_model = PathGNN(dim=2, num_layers=1, labels_count=g.labels_count,
                         device="cpu")
     readout = sum(p.launches_per_backward for p in readout_plans(
         cpu_model, g, pay.train_paths))
     rec["readout_launches_per_step"] = readout
-    # One forward and one backward apply_perm per step, one launch per
-    # level each, and each readout plan's levels in the backward: the
-    # backward went through the kernel too.
-    want = (2 * launches_per_apply + readout) * TRAIN_STEPS
+    # One forward and one backward apply_perm per step, one A2 launch per
+    # level each (the backward went through the kernel too), and each
+    # readout plan's segment sums in the backward.
+    want = 2 * launches_per_apply * TRAIN_STEPS
     check(launches[1] == want,
           f"{launches[1]} ell_gather_sum launches in fit, want {want} "
-          f"((2 x {launches_per_apply} + {readout}) x {TRAIN_STEPS})")
+          f"(2 x {launches_per_apply} x {TRAIN_STEPS})")
+    check(launches[2] == readout * TRAIN_STEPS,
+          f"{launches[2]} segment_sum launches in fit, want "
+          f"{readout * TRAIN_STEPS} ({readout} x {TRAIN_STEPS})")
 
     eng = pay.engine
     check(np.allclose(eng.vertices.vde, _numpy_forward(pay.state.params, g),
@@ -1718,17 +1742,19 @@ def train_phase(g, device, record) -> tuple:
 
     seg = PathGNN(dim=2, num_layers=1, labels_count=g.labels_count,
                   activation="softplus", device=device)
-    ell.LAUNCHES = 0
+    _zero_counts(ell, gather)
     st = fit(seg, g, pay.train_paths, num_steps=SEGMENT_STEPS,
              batch_size=1024, seed=0, negatives=True, learning_rate=1e-2,
              aggregation="segment", device=device)
-    check(ell.LAUNCHES == readout * SEGMENT_STEPS,
-          f"segment fit: {ell.LAUNCHES} A2 launches, the readout plans say "
-          f"{readout * SEGMENT_STEPS}")
+    seg_launches = (ell.LAUNCHES, gather.LAUNCHES)
+    check(seg_launches == (0, readout * SEGMENT_STEPS),
+          f"segment fit: {seg_launches} (A2, segment_sum) launches, the "
+          f"readout plans say (0, {readout * SEGMENT_STEPS})")
     diff = np.abs(np.asarray(st.history) - np.asarray(hist[:SEGMENT_STEPS]))
     rec["segment"] = dict(steps=SEGMENT_STEPS, step_ms=st.steps_s
                           / SEGMENT_STEPS * 1e3, max_abs_diff=float(diff.max()),
-                          a2_launches=ell.LAUNCHES)
+                          a2_launches=seg_launches[0],
+                          segment_sum_launches=seg_launches[1])
     check(np.allclose(st.history, hist[:SEGMENT_STEPS], rtol=1e-3,
                       atol=1e-5),
           f"segment fit's losses leave the binned ones (max diff "
@@ -1737,7 +1763,7 @@ def train_phase(g, device, record) -> tuple:
           f"rtol 1e-3 (max abs diff {diff.max():.3e}, "
           f"{rec['segment']['step_ms']:.3f} ms/step)")
     torch.cuda.synchronize()
-    return launches
+    return launches, seg_launches[1]
 
 
 # ---- the probe, ladder, uniform-ELL and profile phases ---------------------
@@ -2114,17 +2140,22 @@ def uniform_ell_phase(g, queries, device, record, cands) -> tuple:
 def readout_rows(g, paths, device, record) -> dict:
     """The trainer's two fixed gathers at dblp (``readout_plans``: the
     label lookup, the readout of ``paths``), f32 D=2: each plan's
-    backward by A2 (one launch a level) bit-equal to its masked plain
-    form and within rtol 1e-4 of ``index_add_``, timed as in phase 3 with
-    ``index_add_`` (atomics, one call) as the library call, and torch's
-    own backward of ``x[idx]`` (``index_put_`` with ``accumulate=True``,
-    what the trainer ran before) timed beside it.  The bound counts what
-    the function must move: the cotangent and the index (4 bytes an
-    entry) read once, the gradient written once.  Returns the A2 rows."""
+    backward by the segment-sum kernel (one launch) bit-equal to
+    ``segment_sum_plain``, bit-identical over 3 calls and within rtol
+    1e-4 of ``index_add_``; timed as in phase 3 with ``index_add_``
+    (atomics, one call) as the library call, torch's own backward of
+    ``x[idx]`` (``index_put_`` with ``accumulate=True``) beside it, and
+    the earlier route of the same call, kernel A2's walk of the
+    transposed index as a uniform-width ELL (``build_ell(8, 8)``), timed
+    in turns with the kernel (walk, kernel, kernel, walk).  The bound
+    counts what the function must move: the cotangent and the index (4
+    bytes an entry) read once, the gradient written once.  Returns the
+    kernel's rows."""
     import torch
     from gnnpe_tpu_torch.models.gnn import PathGNN
     from gnnpe_tpu_torch.models.train import readout_plans
-    from gnnpe_tpu_torch.ops import ell
+    from gnnpe_tpu_torch.ops import gather
+    from gnnpe_tpu_torch.ops.ell import build_ell
     model = PathGNN(dim=2, num_layers=1, labels_count=g.labels_count,
                     activation="softplus", device=device)
     t0 = time.perf_counter()
@@ -2135,40 +2166,61 @@ def readout_rows(g, paths, device, record) -> dict:
     for plan in plans:
         n, r, idx = plan.idx.numel(), plan.num_rows, plan.idx
         cot = torch.from_numpy(rng.rand(n, 2).astype(np.float32)).to(device)
-        ell.LAUNCHES = 0
+        gather.LAUNCHES = 0
         got = plan.backward(cot)
-        check(ell.LAUNCHES == plan.launches_per_backward
-              == len(plan.back.tables),
-              f"readout {plan.name}: {ell.LAUNCHES} A2 launches for a "
-              f"backward of {len(plan.back.tables)} levels")
+        check(gather.LAUNCHES == plan.launches_per_backward == 1,
+              f"readout {plan.name}: {gather.LAUNCHES} segment_sum launches "
+              "for a backward")
         plain = plan.backward_plain(cot)
+        again = [plan.backward(cot) for _ in range(3)]
         add = lambda: torch.zeros((r, 2), device=device).index_add_(
             0, idx, cot)
         put = lambda: torch.zeros((r, 2), device=device).index_put_(
             (idx,), cot, accumulate=True)
+        walk = build_ell(plan.offsets.cpu().numpy().astype(np.int64),
+                         plan.perm.cpu().numpy(), 8, 8,
+                         num_sources=n).on(device)
         torch.cuda.synchronize()
         err = float((got - plain).abs().max())
-        check(torch.equal(got, plain), f"readout {plan.name}: A2 differs "
-              f"from the masked plain form (max abs err {err})")
-        for what, lib in (("index_add_", add()), ("index_put_", put())):
-            check(torch.allclose(lib, plain, rtol=1e-4, atol=1e-4),
-                  f"readout {plan.name}: {what} leaves the plain form by "
-                  f"{float((lib - plain).abs().max())}")
+        check(torch.equal(got, plain), f"readout {plan.name}: segment_sum "
+              f"differs from segment_sum_plain (max abs err {err})")
+        check(all(torch.equal(got, a) for a in again),
+              f"readout {plan.name}: segment_sum differs between calls")
+        for what, lib in (("index_add_", add()), ("index_put_", put()),
+                          ("the A2 walk", walk.apply(cot))):
+            check(torch.allclose(lib, got, rtol=1e-4, atol=1e-4),
+                  f"readout {plan.name}: {what} leaves the kernel by "
+                  f"{float((lib - got).abs().max())}")
         name = f"readout_{plan.name.split('.')[-1]}_f32_d2"
+        kern = lambda: plan.backward(cot)
         rows[name] = dict(max_abs_err=err, **_measure(
-            lambda: plan.backward_plain(cot), lambda: plan.backward(cot),
-            add, bytes_moved=n * 2 * 4 + n * 4 + r * 2 * 4,
+            lambda: plan.backward_plain(cot), kern, add,
+            bytes_moved=n * 2 * 4 + n * 4 + r * 2 * 4,
             operations=n * 2, bytes_gathered=n * 2 * 4))
+        w1, k1, k2, w2 = (cuda_ms(lambda: walk.apply(cot), 50),
+                          cuda_ms(kern, 50), cuda_ms(kern, 50),
+                          cuda_ms(lambda: walk.apply(cot), 50))
         rows[name].update(
-            entries=n, rows=r, index_put_accumulate_ms=cuda_ms(put, 5),
-            levels=[list(t.shape) for t in plan.back.tables],
-            layout_bytes=_hier_bytes(plan.back, 2))
-        _print_turns(f"ell_gather_sum readout {name} "
-                     f"({plan.launches_per_backward} launches)", rows[name])
-        print(f"  {name}: {n} entries into {r} rows, levels "
-              f"{rows[name]['levels']}; torch's x[idx] backward "
-              f"(index_put_ accumulate) "
-              f"{rows[name]['index_put_accumulate_ms']:.4f} ms")
+            entries=n, rows=r, tiles=plan.tiles, window=plan.window,
+            threads=plan.threads, calls_bit_identical=3,
+            index_put_accumulate_ms=cuda_ms(put, 5),
+            a2_walk=dict(launches=walk.launches_per_apply,
+                         ms=(w1 + w2) / 2, turns_ms=[w1, k1, k2, w2],
+                         kernel_ms=(k1 + k2) / 2,
+                         device_ms=graph_ms(lambda: walk.apply(cot)),
+                         levels=[list(t.shape) for t in walk.tables]))
+        _print_turns(f"segment_sum readout {name} (1 launch, "
+                     f"{plan.tiles} tiles of {plan.window} x "
+                     f"{plan.threads})", rows[name])
+        w = rows[name]["a2_walk"]
+        print(f"  {name}: {n} entries into {r} rows, bit-identical over 3 "
+              f"calls; torch's x[idx] backward (index_put_ accumulate) "
+              f"{rows[name]['index_put_accumulate_ms']:.4f} ms; the A2 walk "
+              f"({w['launches']} launches, levels {w['levels']}) "
+              f"{w['ms']:.4f} ms, on the card {w['device_ms']:.4f} ms (walk, "
+              f"kernel, kernel, walk = "
+              + ", ".join(f"{t:.4f}" for t in w["turns_ms"]) + ")")
+        del walk
     rec["rows"] = rows
     return rows
 
@@ -2577,7 +2629,7 @@ def main() -> int:
     launches += a1
     peak("pge")
     fresh()
-    (a1, a2_multi), a1_rect, a2_rect = multi_device_phase(
+    (a1, a2_multi, seg_multi), a1_rect, a2_rect = multi_device_phase(
         g, queries, device, record, pe_oracle, pge_oracle,
         record["pe_table"]["index_file"])
     launches += a1
@@ -2596,7 +2648,7 @@ def main() -> int:
     paths = pe_oracle["paths"]
     paths = paths[np.sort(np.random.RandomState(3).choice(
         len(paths), size=500_000, replace=False))]
-    ell_rows.update(readout_rows(g, paths, device, record))
+    seg_rows = readout_rows(g, paths, device, record)
     peak("readout")
     fresh()
     profile_phase(g, paths, device, record,
@@ -2607,7 +2659,7 @@ def main() -> int:
     peak("pge_device")
     del pge_oracle
     fresh()
-    a1, a2 = train_phase(g, device, record)
+    (a1, a2, seg_train), seg_fit = train_phase(g, device, record)
     launches += a1
     peak("train")
     fresh()
@@ -2619,6 +2671,12 @@ def main() -> int:
     ell_rows.update(a2_bench)
     launches += bench_launches[0]
     peak("bench")
+    kernel_launches = dict(
+        spmm_csr=launches,
+        ell_gather_sum=a2 + a2_multi + a2_hier + bench_launches[1],
+        segment_sum=seg_train + seg_fit + seg_multi)
+    check(min(kernel_launches.values()) > 0,
+          f"a kernel did not launch on the main paths: {kernel_launches}")
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "gnnpe_tpu"))
     check(not foreign, f"the port imported {foreign}")
@@ -2626,11 +2684,16 @@ def main() -> int:
     print("record: " + json.dumps(record))
     print(smi)
     print(json.dumps({"kernels": [
-        _kernel_row("spmm_csr", "experiments/pallas_spmm.py:181", launches,
-                    rows, "f64_d2"),
+        _kernel_row("spmm_csr", "experiments/pallas_spmm.py:181",
+                    kernel_launches["spmm_csr"], rows, "f64_d2"),
         _kernel_row("ell_gather_sum", "experiments/pallas_blocked_spmm.py:106",
-                    a2 + a2_multi + a2_hier + bench_launches[1], ell_rows,
-                    "f32_d2")]}))
+                    kernel_launches["ell_gather_sum"], ell_rows, "f32_d2"),
+        _kernel_row("segment_sum", "gnnpe_tpu/models/gnn.py:106,122 (the "
+                    "jnp.take VJP, an XLA scatter-add, no Pallas kernel); in "
+                    "the port the readout's walk on the A2 kernel of "
+                    "experiments/pallas_blocked_spmm.py:106",
+                    kernel_launches["segment_sum"], seg_rows,
+                    "readout_paths_f32_d2")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

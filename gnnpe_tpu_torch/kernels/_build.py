@@ -42,6 +42,10 @@ _SIGNATURES = {
         "gnnpe_ell_gather_sum_level_f32": [_c.c_int] + [_c.c_void_p] * 3
         + [_c.c_int] * 4 + [_c.c_void_p],
         "gnnpe_ell_max_tables": [], "gnnpe_ell_threads": []},
+    # (device, plan, g, out, d, vec, stream); plan: a SegmentPlan struct
+    "segment_sum": {
+        "gnnpe_segment_sum_f32": [_c.c_int] + [_c.c_void_p] * 3
+        + [_c.c_int] * 2 + [_c.c_void_p]},
 }
 
 

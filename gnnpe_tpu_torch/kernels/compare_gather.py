@@ -2,7 +2,7 @@
 ``ops.ell.BinnedEllDevice.apply_perm``) on the dblp-rung graph, on one
 CUDA card, and compare two checkouts of the port in turns.
 
-    python -m gnnpe_tpu_torch.kernels.compare_gather [--parent DIR]
+    python -m gnnpe_tpu_torch.kernels.compare_gather [--parent DIR] [--step]
     python -m gnnpe_tpu_torch.kernels.compare_gather --sweep
 
 Without ``--parent`` the checkout this file lies in is measured twice.
@@ -21,8 +21,13 @@ D=128, A2 f32 D=2 and D=128.  Per shape a turn reports
 
 and A1 on the graph's rows in degree-sorted order, A1 with the long-row
 queue at several thresholds where the checkout has it, and A2's launches
-per apply.  The summary prints every turn and the ratio of the
-checkouts' means.
+per apply.  With ``--step`` a turn times the training step instead:
+``frontends/train_payoff.run`` on dblp with 8 queries (300 binned
+steps), its ``step_ms`` and ``train_s`` (host clock, the card
+synchronised at both ends of the step loop) and its losses, after the
+turn has built every kernel of its checkout (so no nvcc runs inside the
+step loop; the libraries go to that checkout's ``build/``).  The summary
+prints every turn and the ratio of the checkouts' means.
 
 ``--sweep`` measures what the wrappers' launch policy rests on
 (``ops/spmm.py``: MIN_LANES, NARROW_LANES, LONG_ROWS; ``ops/ell.py``:
@@ -154,6 +159,20 @@ def measure() -> dict:
     return out
 
 
+def measure_step() -> dict:
+    """The training step of ``train_payoff`` for the checkout on
+    ``sys.path``, its kernels built first."""
+    from gnnpe_tpu_torch.frontends.train_payoff import run
+    from gnnpe_tpu_torch.kernels import _build
+    csrc = pathlib.Path(_build.__file__).resolve().parents[1] / "csrc"
+    for source in sorted(csrc.glob("*.cu")):
+        _build.build(source.stem)
+    row = run("dblp", queries=8, device="cuda").rows[-1]
+    return {"package": str(csrc.parents[1]),
+            "step": dict(step_ms=row["step_ms"], train_s=row["train_s"]),
+            "loss_first": row["loss_first"], "loss_last": row["loss_last"]}
+
+
 def _lane_shapes(pack_shape, d, elem_size):
     """The widest (vec, lanes) for a row and each halving of vec."""
     vec, lanes = pack_shape(d, elem_size, 0)
@@ -219,9 +238,12 @@ def main() -> int:
                     help="measure the checkout on PYTHONPATH; print JSON")
     ap.add_argument("--sweep", action="store_true",
                     help="time every launch variant of this checkout")
+    ap.add_argument("--step", action="store_true",
+                    help="time train_payoff's training step instead")
     args = ap.parse_args()
     if args.measure:
-        print("MEASURED " + json.dumps(measure()))
+        print("MEASURED " + json.dumps(measure_step() if args.step
+                                       else measure()))
         return 0
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -238,9 +260,10 @@ def main() -> int:
     turns = []
     for tree in trees:
         env = dict(os.environ, PYTHONPATH=tree)
-        res = subprocess.run([sys.executable, __file__, "--measure"],
-                             env=env, cwd=tree, capture_output=True,
-                             text=True)
+        res = subprocess.run(
+            [sys.executable, __file__, "--measure"]
+            + (["--step"] if args.step else []),
+            env=env, cwd=tree, capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)
             return 1
@@ -249,10 +272,12 @@ def main() -> int:
         turns.append(json.loads(line[len("MEASURED "):]))
         print(f"turn {len(turns)}: " + json.dumps(turns[-1]))
     if args.parent:
+        keys = ("step_ms", "train_s") if args.step else (
+            "ms", "device_ms", "cold_ms")
         shapes = [k for k, v in turns[0].items()
-                  if isinstance(v, dict) and "ms" in v]
+                  if isinstance(v, dict) and keys[0] in v]
         for shape in shapes:
-            for key in ("ms", "device_ms", "cold_ms"):
+            for key in keys:
                 old = (turns[0][shape][key] + turns[3][shape][key]) / 2
                 new = (turns[1][shape][key] + turns[2][shape][key]) / 2
                 print(f"{shape} {key}: parent {old:.5f}, this {new:.5f}, "

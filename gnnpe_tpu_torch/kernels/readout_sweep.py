@@ -1,5 +1,6 @@
 """Time the trainer's readout backward (``ops/gather.py:GatherRows`` on
-kernel A2) over the layout's two widths, on one CUDA card.
+the segment-sum kernel, csrc/segment_sum.cu) over its tile shape, on one
+CUDA card.
 
     python -m gnnpe_tpu_torch.kernels.readout_sweep [--dataset dblp]
 
@@ -7,17 +8,21 @@ The inputs are those of ``frontends/train_payoff.run`` at seed 0: the
 dataset's 3-vertex paths, deduplicated and subsampled to 500,000, read
 flat into the vertex rows (the path readout), and the vertex labels into
 the label table (the label lookup); the cotangent is f32 D=2, the
-trainer's width.  For every (``width``, ``level2_width``) of the grid,
-each plan's backward is first held bit-equal to its masked plain form,
-then timed: ``ms`` by CUDA events round a loop of calls (host path
-included), ``device_ms`` replayed from a CUDA graph (the card alone).
-Beside them, once per gather, torch's own backward of ``x[idx]``
-(``index_put_`` with ``accumulate=True``) and ``index_add_``, by
-events.  One JSON row per point; the last line names the points with
-the least summed ``ms`` of the two plans (what a step pays while its
-launches are bound by the host) and the least summed ``device_ms``.
-All times are device times of this run's card, whose name and power
-limit are printed first.
+trainer's width.  For every (``window``, ``threads``) of the grid, each
+plan's backward is first held bit-equal to ``segment_sum_plain`` and to
+itself over 3 calls, then timed: ``ms`` by CUDA events round a loop of
+calls (host path included), ``device_ms`` replayed from a CUDA graph (the
+card alone).  Beside them, once per gather, ``index_add_`` and torch's
+own backward of ``x[idx]`` (``index_put_`` with ``accumulate=True``) by
+events, and the earlier route of the same call, kernel A2's walk of the
+transposed index as a uniform-width ELL (``build_ell(offsets, perm, 8,
+8, num_sources=N)``), by events and on the card.  One JSON row per
+point; the last line names the points with the least summed ``ms`` of
+the two plans (what a step pays while it is bound by the host) and the
+least summed ``device_ms``.  All times are device times of this run's
+card, whose name and power limit are printed first.  The training step
+of two checkouts in turns is ``kernels/compare_gather.py --parent DIR
+--step``.
 """
 
 from __future__ import annotations
@@ -31,8 +36,8 @@ import numpy as np
 
 from gnnpe_tpu_torch.kernels.compare_gather import _events_ms, _graph_ms
 
-WIDTHS = (4, 8, 16, 32)
-LEVEL2_WIDTHS = (2, 4, 8, 16)
+WINDOWS = (4, 8, 16)
+THREADS = (64, 128, 256, 512)
 
 
 def readout_indices(dataset: str, seed: int = 0):
@@ -45,20 +50,33 @@ def readout_indices(dataset: str, seed: int = 0):
     return g.labels, g.labels_count, paths.reshape(-1), g.num_vertices
 
 
-def _library(idx, rows, g):
-    """Torch's backward of ``x[idx]`` and ``index_add_``, timed."""
+def _earlier(plan, g):
+    """``index_add_``, ``index_put_`` (accumulate) and the A2 walk of
+    ``plan``'s transposed index, timed; the walk within rtol 1e-4 of the
+    kernel."""
     import torch
-    shape = (rows, g.shape[1])
+    from gnnpe_tpu_torch.ops.ell import build_ell
+    idx, shape = plan.idx, (plan.num_rows, g.shape[1])
     put = lambda: torch.zeros(shape, device=g.device).index_put_(
         (idx,), g, accumulate=True)
     add = lambda: torch.zeros(shape, device=g.device).index_add_(0, idx, g)
+    walk = build_ell(plan.offsets.cpu().numpy().astype(np.int64),
+                     plan.perm.cpu().numpy(), 8, 8,
+                     num_sources=idx.numel()).on(g.device)
+    if not torch.allclose(walk.apply(g), plan.backward(g), rtol=1e-4,
+                          atol=1e-4):
+        raise SystemExit(f"readout_sweep: {plan.name}: the A2 walk leaves "
+                         "the kernel")
     return dict(index_put_accumulate_ms=_events_ms(put, 5),
-                index_add_ms=_events_ms(add, 20))
+                index_add_ms=_events_ms(add, 20),
+                a2_walk_launches=walk.launches_per_apply,
+                a2_walk_ms=_events_ms(lambda: walk.apply(g), 50),
+                a2_walk_device_ms=_graph_ms(lambda: walk.apply(g)))
 
 
 def sweep(dataset: str) -> None:
     import torch
-    from gnnpe_tpu_torch.ops import ell
+    from gnnpe_tpu_torch.ops import gather
     from gnnpe_tpu_torch.ops.gather import GatherRows
     device = torch.device("cuda", torch.cuda.current_device())
     labels, num_labels, flat_paths, num_vertices = readout_indices(dataset)
@@ -68,42 +86,41 @@ def sweep(dataset: str) -> None:
     cot = {k: torch.from_numpy(rng.rand(len(i), 2).astype(np.float32)
                                ).to(device) for k, (i, _) in gathers.items()}
     for name, (idx, rows) in gathers.items():
-        lib = _library(torch.from_numpy(idx.astype(np.int64)).to(device),
-                       rows, cot[name])
+        plan = GatherRows.build(idx, rows, device, name=name)
         print(json.dumps(dict(gather=name, entries=len(idx), rows=rows,
-                              **lib)))
+                              **_earlier(plan, cot[name]))))
     points = []
-    for width in WIDTHS:
-        for level2 in LEVEL2_WIDTHS:
+    for window in WINDOWS:
+        for threads in THREADS:
             total = [0.0, 0.0]
             for name, (idx, rows) in gathers.items():
-                plan = GatherRows.build(idx, rows, device, width, level2)
+                plan = GatherRows.build(idx, rows, device, window, threads,
+                                        name=name)
                 g = cot[name]
-                before = ell.LAUNCHES
-                got = plan.backward(g)
-                launches = ell.LAUNCHES - before
-                if not torch.equal(got, plan.backward_plain(g)):
-                    raise SystemExit(f"readout_sweep: {name} at ({width}, "
-                                     f"{level2}) differs from its plain "
-                                     "form")
-                row = dict(gather=name, width=width, level2_width=level2,
-                           launches=launches,
-                           levels=[list(t.shape) for t in plan.back.tables],
-                           slots=int(sum(t.numel()
-                                         for t in plan.back.tables)),
+                before = gather.LAUNCHES
+                got = [plan.backward(g) for _ in range(3)]
+                launches = gather.LAUNCHES - before
+                if not all(torch.equal(got[0], o) for o in got[1:]):
+                    raise SystemExit(f"readout_sweep: {name} at ({window}, "
+                                     f"{threads}) differs between calls")
+                if not torch.equal(got[0], plan.backward_plain(g)):
+                    raise SystemExit(f"readout_sweep: {name} at ({window}, "
+                                     f"{threads}) differs from "
+                                     "segment_sum_plain")
+                row = dict(gather=name, window=window, threads=threads,
+                           launches=launches // 3,
+                           tiles=plan.tile_rows.numel() - 1,
                            ms=_events_ms(lambda: plan.backward(g), 50),
                            device_ms=_graph_ms(lambda: plan.backward(g)))
                 total[0] += row["ms"]
                 total[1] += row["device_ms"]
                 print(json.dumps(row))
                 del plan
-            points.append((width, level2, *total))
+            points.append((window, threads, *total))
     by_ms, by_device = (min(points, key=lambda p: p[k]) for k in (2, 3))
-    print(json.dumps(dict(least_ms=dict(zip(
-        ("width", "level2_width", "ms_both", "device_ms_both"), by_ms)),
-        least_device_ms=dict(zip(
-            ("width", "level2_width", "ms_both", "device_ms_both"),
-            by_device)))))
+    keys = ("window", "threads", "ms_both", "device_ms_both")
+    print(json.dumps(dict(least_ms=dict(zip(keys, by_ms)),
+                          least_device_ms=dict(zip(keys, by_device)))))
 
 
 def main() -> int:

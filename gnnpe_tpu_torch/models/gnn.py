@@ -8,8 +8,8 @@ monotone-dominance property the index prunes with.  The neighbour sum
 ``A h`` is injected as ``aggregate``: ``ops.spmm.NeighborSum`` (kernel
 A1) or ``ops.ell.binned_aggregate`` (kernel A2, forward and backward).
 The label lookup and the path readout take an optional
-``ops.gather.GatherRows`` plan each, whose backward runs on kernel A2
-instead of scattering (the trainers pass them; the embedder's f64
+``ops.gather.GatherRows`` plan each, whose backward runs on the
+segment-sum kernel (csrc/segment_sum.cu) instead of scattering (the trainers pass them; the embedder's f64
 forward does not).
 
 The raw parameters are those of gnnpe_tpu's ``PathGNNParams``:
@@ -165,7 +165,7 @@ class PathGNN(nn.Module):
         """Per-vertex features after message passing; ``aggregate`` is
         the neighbour sum h ↦ A h.  ``labels_plan``, a ``GatherRows``
         built from ``labels``, makes the label lookup's backward
-        scatter-free (kernel A2 on a card); without one it is
+        scatter-free (the segment-sum kernel on a card); without one it is
         ``embed[labels]``."""
         h = _take(self._pos(self.embed), labels, labels_plan)
         for i in range(self.num_layers):

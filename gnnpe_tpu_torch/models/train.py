@@ -216,9 +216,9 @@ def fit(model: PathGNN, graph: CSRGraph, paths: np.ndarray,
     negatives=True adds the discriminative term over NLF-violating
     candidate pairs (sample_negative_pairs).
     The label lookup and the path readout go through ``readout_plans``,
-    built once before the step loop, so their backward is kernel A2's
-    walk of the transposed index (``launches_per_backward`` each a step
-    on a card) and no scatter, on either aggregation."""
+    built once before the step loop, so their backward is the
+    segment-sum kernel over the transposed index (``launches_per_backward``
+    each a step on a card) and no scatter, on either aggregation."""
     device = as_device(device)
     if model.device != device:
         raise ValueError(f"model is on {model.device}, fit asked for "

@@ -10,8 +10,9 @@ gets one zero row past its end and every pad points there, which adds
 exactly the 0.0 that the masked plain form adds for a pad; the levels
 share one work buffer and their launches are laid out once
 (``WalkPlan``).  A rectangular layout (``num_sources``) gathers from
-another row count than it writes: ops/gather.py's transposed index.  On a CPU
-tensor each level is that masked plain form.
+another row count than it writes (a gather's transposed index, as the
+readout's backward was walked before it got its own kernel,
+ops/gather.py).  On a CPU tensor each level is that masked plain form.
 
 The host layout (``build_binned_ell``, the ``BinnedEll`` tables) is the
 port's own copy of gnnpe_tpu's numpy builder.  ``BinnedEllDevice``
@@ -847,8 +848,8 @@ class HierarchicalEll:
     while a vertex has more rows than that); the last level has one row
     per vertex.  Level 1 reads ``num_sources`` rows: ``num_vertices``
     where None (the square layout of an adjacency), else the rows a
-    rectangular layout gathers from (ops/gather.py: one per entry of a
-    gather's index)."""
+    rectangular layout gathers from (one per entry of a gather's
+    index)."""
     levels: List[EllLayout]
     num_vertices: int
     num_slots: int          # total gather slots (padding overhead metric)

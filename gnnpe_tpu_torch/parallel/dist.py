@@ -134,13 +134,14 @@ def make_distributed_train_step(model: PathGNN, mesh, optimizer,
     shard).  The loss returned is the mean over the axes; the gradient
     applied is the sum over the batch shards (see the module
     docstring).  The label lookup and the path readout go through
-    ``GatherRows`` plans (ops/gather.py: their backward is kernel A2's
-    walk of the transposed index, no scatter), each kept in a one-entry
+    ``GatherRows`` plans (ops/gather.py: their backward is the
+    segment-sum kernel over the transposed index, no scatter), each kept
+    in a one-entry
     cache keyed on the ``labels`` and ``paths`` tensors the step is
     handed, so a step given the same tensors again builds nothing.
-    ``step.launches`` is the (A1, A2) kernel launches of one step on a
-    CUDA device, forward and backward: the aggregation's, plus the
-    plans' of the last call (the aggregation's alone before the
+    ``step.launches`` is the (A1, A2, segment_sum) kernel launches of
+    one step on a CUDA device, forward and backward: the aggregation's A1
+    and A2, and the plans' segment sums of the last call (0 before the
     first)."""
     names = mesh.mesh_dim_names or ()
     axes = []
@@ -203,8 +204,7 @@ def make_distributed_train_step(model: PathGNN, mesh, optimizer,
 
     def step(labels, paths, pairs) -> torch.Tensor:
         labels_plan, paths_plan = labels_cache(labels), paths_cache(paths)
-        step.launches = (agg_launches[0], agg_launches[1]
-                         + labels_plan.launches_per_backward
+        step.launches = (*agg_launches, labels_plan.launches_per_backward
                          + paths_plan.launches_per_backward)
         optimizer.zero_grad(set_to_none=True)
         h = vertex_embeddings(labels, labels_plan)
@@ -225,5 +225,5 @@ def make_distributed_train_step(model: PathGNN, mesh, optimizer,
         return flat[-1] / ranks
 
     agg_launches = tuple(model.num_layers * k for k in per_hop)
-    step.launches = agg_launches
+    step.launches = (*agg_launches, 0)
     return step

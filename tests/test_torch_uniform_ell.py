@@ -125,6 +125,69 @@ def test_on_uploads_once_and_checks_inputs():
         dev.apply(torch.rand(len(offs) - 1, 2, device="meta"))
 
 
+def _transposed_index(seed, n=3_000, rows=200):
+    """A gather index [n] into ``rows`` rows (row 0 named 1,000 times,
+    the last 5 rows never), and its transpose as CSR: the stable
+    argsort ``perm`` and the row pointer ``offsets``."""
+    rng = np.random.RandomState(seed)
+    idx = np.concatenate([np.zeros(1_000, np.int64),
+                          rng.randint(1, rows - 5, n - 1_000)])
+    rng.shuffle(idx)
+    perm = np.argsort(idx, kind="stable")
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(idx,
+                                                         minlength=rows))])
+    return idx, perm, offsets
+
+
+@pytest.mark.parametrize("width,level2", WIDTHS)
+def test_rectangular_layout_is_a_gathers_transpose(width, level2):
+    """With ``num_sources`` the layout reads one row per entry of a
+    gather's index and writes one per row it names: its apply is the
+    gather's backward — within rtol 1e-4 / atol 1e-6 of ``jax.vjp`` of
+    ``jnp.take`` (XLA's scatter-add orders a row's adds its own way) and
+    of a float64 ``np.add.at``, exact on integer-valued inputs."""
+    import jax
+    import jax.numpy as jnp
+    idx, perm, offsets = _transposed_index(width)
+    n, rows = len(idx), len(offsets) - 1
+    lay = ell.build_ell(offsets, perm, width, level2, num_sources=n)
+    dev = lay.on("cpu")
+    assert dev.src_rows[0] == n and dev.num_vertices == rows
+    assert dev.tables[-1].shape == (rows, level2)
+    g = np.random.RandomState(width + level2).rand(n, 3).astype(
+        np.float32) * 2 - 1
+    got = dev.apply(torch.from_numpy(g)).numpy()
+    oracle = np.zeros((rows, 3))
+    np.add.at(oracle, idx, g.astype(np.float64))
+    np.testing.assert_allclose(got, oracle, rtol=1e-4, atol=1e-6)
+    _, vjp = jax.vjp(lambda x: jnp.take(x, jnp.asarray(idx), axis=0),
+                     jnp.zeros((rows, 3), jnp.float32))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    assert np.array_equal(got[-5:], np.zeros((5, 3), np.float32))
+    ints = np.random.RandomState(level2).randint(-50, 50, (n, 2)).astype(
+        np.float32)
+    exact = np.zeros((rows, 2), np.float32)
+    np.add.at(exact, idx, ints)
+    assert np.array_equal(dev.apply(torch.from_numpy(ints)).numpy(), exact)
+    with pytest.raises(ValueError, match=f"must be \\[{n}, D\\]"):
+        dev.apply(torch.zeros(rows, 3))
+
+
+def test_layout_checks_its_sources():
+    """A square layout takes its source rows to be its vertices, a
+    rectangular one ``num_sources``: an index past either raises."""
+    square = ell.build_ell(np.array([0, 1, 2]), np.array([1, 2]))
+    with pytest.raises(ValueError, match="outside"):
+        square.on("cpu")
+    assert ell.build_ell(np.array([0, 1, 2]), np.array([1, 2]),
+                         num_sources=3).on("cpu").src_rows[0] == 3
+    _, perm, offsets = _transposed_index(0)
+    short = ell.build_ell(offsets, perm, num_sources=len(perm) - 1)
+    with pytest.raises(ValueError, match="outside"):
+        short.on("cpu")
+
+
 def test_kernel_tables_walk_equals_masked_form():
     """What the kernel computes on the card — the level's input with a
     zero row appended, pads pointing at it, slots added in order from

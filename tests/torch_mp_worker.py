@@ -327,7 +327,7 @@ def readout(rank, world, seed):
     (``fit``'s inner loop, the shards' losses summed) and without them
     (``x[idx]``).  Each plan is built once for the tensors handed in
     again, once more for a new ``paths`` tensor, and ``step.launches``
-    adds the plans' A2 launches to the aggregation's."""
+    gives the plans' segment-sum launches beside the aggregation's."""
     from gnnpe_tpu_torch.ops import gather
     from gnnpe_tpu_torch.ops.gather import GatherRows
     mesh = make_mesh(world, axes=("graph",), shape=(world,), device="cpu")
@@ -392,15 +392,16 @@ def readout(rank, world, seed):
         step = make_distributed_train_step(
             model, mesh, opt, g.num_vertices, batch_axis="graph",
             backend=backend, **kw)
-        agg_launches = step.launches
+        agg_launches = step.launches[:2]
+        assert step.launches[2] == 0, (backend, step.launches)
         del builds[:]
         for _ in range(3):
             loss = float(step(labels, paths_t, pairs_t))
         assert builds == [len(own), paths_t.numel()], (backend, builds)
         readout_launches = (build(own, 6, "cpu").launches_per_backward
                             + build(paths_t, 48, "cpu").launches_per_backward)
-        assert step.launches == (agg_launches[0], agg_launches[1]
-                                 + readout_launches), (backend, step.launches)
+        assert step.launches == (*agg_launches, readout_launches), (
+            backend, step.launches)
         leaves = [p.detach().numpy() for p in model.leaves()]
         for planned, (want_loss, want_leaves) in singles.items():
             assert abs(loss - want_loss) < 1e-5, (backend, planned, loss,
