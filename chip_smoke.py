@@ -115,7 +115,16 @@
    for this seed; every trained answer equal to the fixed-VDE answer;
    every trained candidate set equal to the flat f64 host filter on the
    embedder's own VDE; the card's f64 trained VDE within rtol 1e-12 of
-   a numpy forward of the same weights.  Then a 50-step
+   a numpy forward of the same weights.  Then the streamed payoff:
+   ``train_payoff.run`` on PE with ``force_streamed=True`` (100 steps, 4
+   held-out queries: cut from the PGE run's 300 and 8 to fit the
+   smoke's time; the same graph at D=2), its main path counted alone:
+   both engines' ``mode`` "streamed", the trained answers equal to the
+   fixed ones (the run's own assertion), the fixed candidates equal to
+   the flat f64 host filter, A2 and segment_sum launched as ``fit``
+   says; ``chunks_mean``, ``blocks_survived_mean``, the search's cache
+   misses and uploaded bytes per query and ``train_s`` printed.  Then a
+   50-step
    ``aggregation="segment"`` fit from the same initial weights and
    batches (the binned run's first chunk) must track the binned loss
    history within rtol 1e-3, launching no A2 and the segment-sum kernel
@@ -147,7 +156,16 @@
    calls, timed as in phase 3 beside ``index_add_`` and torch's own
    backward of ``x[idx]`` (``index_put_`` with ``accumulate=True``), and
    in turns with the earlier route of the same call, kernel A2's walk of
-   the transposed index as a uniform-width ELL (one launch a level).
+   the transposed index as a uniform-width ELL (one launch a level); the
+   same two plans at f64 D=2, bit-equal and timed the same way.  The
+   kernel past its earlier limits: (a) the full dblp path readout (all
+   60,779,769 paths, 182,339,307 entries into 317,080 rows) at f32 D=12,
+   N·D past 2^31, one launch bit-equal to ``segment_sum_plain`` on the
+   card column slice by column slice, bit-identical over 2 calls, within
+   rtol 1e-4 of ``index_add_``, timed by events and on the card alone
+   beside ``index_add_``, its peak device memory printed; (c) a small
+   index at D = 4,100 (f32 and f64), bit-equal; (d) an empty index
+   through autograd, one launch, all rows zero.
    Then ``utils/profiling.trace`` around 5 warm binned ``fit`` steps (the
    train phase's model and pairs), its top device kernels and ops by
    share of device time, each readout backward's range
@@ -186,10 +204,10 @@ every answer count must equal native refinement on
 those candidates; the table and device phases share the oracle of the
 phase before them.  Each kernel's launch count over the main path of
 the phases that run it (A1: PE, PE table, PE streamed, PGE, PGE device,
-both pre-verify runs, multi-device, ladder, train and bench; A2:
-multi-device, train (aggregation), the uniform-ELL pre-verify and
-attention, and bench; segment_sum: train, the segment fit and
-multi-device) must be > 0, and
+both pre-verify runs, multi-device, ladder, train, the streamed payoff
+and bench; A2: multi-device, train (aggregation), the streamed payoff,
+the uniform-ELL pre-verify and attention, and bench; segment_sum: train,
+the segment fit, the streamed payoff and multi-device) must be > 0, and
 the index tensors must live on the card.
 At the end neither ``jax`` nor any module of ``gnnpe_tpu`` may have been
 imported.  Any failure exits non-zero.  The full record is printed as one
@@ -221,6 +239,10 @@ PREVERIFY_ROUNDS = 2
 STREAM_POOL_BLOCKS = 30_000
 TRAIN_STEPS = 300
 TRAIN_QUERIES = 8
+# The streamed PE payoff, cut to fit the smoke's time: fewer steps and
+# queries than the PGE payoff above, the same graph at D=2.
+STREAMED_STEPS = 100
+STREAMED_QUERIES = 4
 SEGMENT_STEPS = 50        # the binned run's first chunk of batches
 MULTI_RANKS = 4           # ranks that share the card over gloo
 MULTI_STEPS = 5           # train steps per backend at world size 1
@@ -591,34 +613,47 @@ def _checked_host_vde(g, cfg, eng, device):
     return host
 
 
-def pe_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> tuple:
-    from gnnpe_tpu_torch.config import PEConfig
+def _pe_oracle(host, paths, queries, cfg) -> list:
+    """The flat f64 host filter (``pe_candidates_chunked``) of each query
+    over ``paths`` and the numpy data VDE ``host``, the query's VDE from
+    numpy too; the queries run in threads (numpy leaves the GIL in its
+    array loops)."""
+    from concurrent.futures import ThreadPoolExecutor
     from gnnpe_tpu_torch.embed.pde import gen_query_pde_table
     from gnnpe_tpu_torch.embed.vde import gen_vde_host
-    from gnnpe_tpu_torch.engine import PEEngine
     from gnnpe_tpu_torch.match.filter import pe_candidates_chunked
     from gnnpe_tpu_torch.match.plan import greedy_path_cover
-    from gnnpe_tpu_torch.match.refine import refinement
     from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
+
+    def one(q):
+        q_paths, _ = enumerate_paths(q, np.arange(q.num_vertices),
+                                     cfg.path_length, dedup=True)
+        q_pde, weight, _ = gen_query_pde_table(gen_vde_host(q, cfg.vde_dim),
+                                               q_paths)
+        plan = greedy_path_cover(q_paths, weight, q.num_vertices)
+        return pe_candidates_chunked(host, paths, q_pde, plan,
+                                     q.num_vertices, epsilon=cfg.epsilon)
+
+    with ThreadPoolExecutor(max_workers=len(queries)) as pool:
+        return list(pool.map(one, queries))
+
+
+def pe_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> tuple:
+    from gnnpe_tpu_torch.config import PEConfig
+    from gnnpe_tpu_torch.engine import PEEngine
+    from gnnpe_tpu_torch.match.refine import refinement
     cfg = PEConfig.from_cli(l=2, e=2, n=MAX_ANSWERS)
     eng = PEEngine(cfg, g, device)
     runs, launches = _engine_phase("pe", eng, queries, device, record,
                                    block_size)
 
     host = _checked_host_vde(g, cfg, eng, device)
-    wants, counts = [], []
+    wants = _pe_oracle(host, eng.paths, queries, cfg)
+    counts = []
     for i, q in enumerate(queries):
-        q_paths, _ = enumerate_paths(q, np.arange(q.num_vertices),
-                                     cfg.path_length, dedup=True)
-        q_pde, weight, _ = gen_query_pde_table(gen_vde_host(q, cfg.vde_dim),
-                                               q_paths)
-        plan = greedy_path_cover(q_paths, weight, q.num_vertices)
-        wants.append(pe_candidates_chunked(host, eng.paths, q_pde, plan,
-                                           q.num_vertices,
-                                           epsilon=cfg.epsilon))
-        counts.append(refinement(g, q, wants[-1], cfg.max_answers,
+        counts.append(refinement(g, q, wants[i], cfg.max_answers,
                                  engine="native"))
-        _check_query("pe", i, runs, wants[-1], counts[-1])
+        _check_query("pe", i, runs, wants[i], counts[-1])
     print(f"pe: {len(queries)} queries x {sorted(runs)} equal the "
           "flat f64 oracle and native refinement")
     launches += _preverify_check("pe", eng, g, queries, runs, record,
@@ -1685,6 +1720,7 @@ def train_phase(g, device, record) -> tuple:
                aggregation=aggregation,
                hubs_with_measured_prices=hubs,
                train_paths=int(len(pay.train_paths)),
+               launches_per_apply=launches_per_apply,
                train_s=trained_row["train_s"], step_ms=trained_row["step_ms"],
                loss_first=hist[0], loss_last=hist[-1],
                candidate_reduction_pct=trained_row["candidate_reduction_pct"],
@@ -1764,6 +1800,78 @@ def train_phase(g, device, record) -> tuple:
           f"{rec['segment']['step_ms']:.3f} ms/step)")
     torch.cuda.synchronize()
     return launches, seg_launches[1]
+
+
+def train_streamed_phase(g, device, record, pe_host) -> tuple:
+    """``train_payoff.run`` on PE with ``force_streamed=True`` at the
+    dblp rung, cut to STREAMED_STEPS steps and STREAMED_QUERIES queries
+    (the main path: counts set to 0 just before, read just after): both
+    engines served by the streamed index (``mode`` "streamed"), the
+    trained answers equal to the fixed ones (the run's own assertion),
+    the fixed embedder's candidates equal to the flat f64 host filter over
+    the PE phase's host paths and numpy VDE, A2 and segment_sum launched
+    as ``fit`` says.  Returns the (A1, A2, segment_sum) launches."""
+    import torch
+    from gnnpe_tpu_torch.frontends import train_payoff
+    from gnnpe_tpu_torch.ops import ell, gather, spmm
+    _zero_counts(spmm, ell, gather)
+    t0 = time.perf_counter()
+    pay = train_payoff.run("dblp", queries=STREAMED_QUERIES,
+                           steps=STREAMED_STEPS, variant="pe",
+                           device=device, force_streamed=True)
+    wall_s = time.perf_counter() - t0
+    launches = (spmm.LAUNCHES, ell.LAUNCHES, gather.LAUNCHES)
+    fixed_row, trained_row = pay.rows
+    hist = pay.state.history
+    per_apply = record["train"]["launches_per_apply"]
+    stats = {who: [dict(cache_misses=st["cache_misses"],
+                        uploaded_bytes=st["uploaded_bytes"],
+                        chunks=st["chunks"], survived=st["survived"])
+                   for st in sts]
+             for who, sts in (("fixed", pay.fixed_stats),
+                              ("trained", pay.trained_stats))}
+    rec = record["train_streamed"] = dict(
+        wall_s=wall_s, spmm_launches=launches[0], ell_launches=launches[1],
+        segment_sum_launches=launches[2], steps=STREAMED_STEPS,
+        queries=STREAMED_QUERIES, train_s=trained_row["train_s"],
+        step_ms=trained_row["step_ms"], loss_first=hist[0],
+        loss_last=hist[-1], per_query=stats, fixed=fixed_row,
+        trained=trained_row)
+    for who, sts in stats.items():
+        print(f"train streamed: {who} search per query: cache misses "
+              f"{[s['cache_misses'] for s in sts]}, uploaded bytes "
+              f"{[s['uploaded_bytes'] for s in sts]}")
+    print(f"train streamed: PE, {STREAMED_STEPS} steps in "
+          f"{rec['train_s']:.2f} s, loss {hist[0]:.6f} -> {hist[-1]:.6f}; "
+          f"mode {fixed_row['mode']} / {trained_row['mode']}; chunks_mean "
+          f"fixed {fixed_row['chunks_mean']}, trained "
+          f"{trained_row['chunks_mean']}; blocks_survived_mean fixed "
+          f"{fixed_row['blocks_survived_mean']}, trained "
+          f"{trained_row['blocks_survived_mean']}; candidates "
+          f"-{trained_row['candidate_reduction_pct']:.2f} %; "
+          f"{wall_s:.1f} s in all")
+    check(fixed_row["mode"] == trained_row["mode"] == "streamed",
+          f"train streamed: mode {fixed_row['mode']} / "
+          f"{trained_row['mode']}, not streamed")
+    check(np.isfinite(hist).all() and len(hist) == STREAMED_STEPS,
+          "train streamed: loss history not finite")
+    check(launches[0] > 0, "train streamed launched no spmm_csr kernel")
+    want = (2 * per_apply * STREAMED_STEPS, 2 * STREAMED_STEPS)
+    check(launches[1:] == want, f"train streamed: {launches[1:]} (A2, "
+          f"segment_sum) launches in fit, want {want}")
+    # The fixed embedder's candidates against the flat f64 host filter.
+    wants = _pe_oracle(pe_host["vertices"], pe_host["paths"], pay.queries,
+                       pay.engine.config)
+    for i, (want, fx) in enumerate(zip(wants, pay.fixed)):
+        check(len(fx.candidates) == len(want) and all(
+            np.array_equal(a, b) for a, b in zip(fx.candidates, want)),
+            f"train streamed query {i}: fixed candidates differ from the "
+            "flat f64 oracle")
+    print(f"train streamed: {len(pay.queries)} trained answers equal the "
+          "fixed ones; the fixed candidates equal the flat f64 oracle")
+    pay.engine.searcher.close()
+    torch.cuda.synchronize()
+    return launches
 
 
 # ---- the probe, ladder, uniform-ELL and profile phases ---------------------
@@ -2212,6 +2320,33 @@ def readout_rows(g, paths, device, record) -> dict:
         _print_turns(f"segment_sum readout {name} (1 launch, "
                      f"{plan.tiles} tiles of {plan.window} x "
                      f"{plan.threads})", rows[name])
+        # The same plan at f64 D=2 (the kernel's second type).
+        cot64 = cot.double()
+        gather.LAUNCHES = 0
+        got64 = plan.backward(cot64)
+        check(gather.LAUNCHES == 1, f"readout {plan.name} f64: "
+              f"{gather.LAUNCHES} segment_sum launches for a backward")
+        plain64 = plan.backward_plain(cot64)
+        err64 = float((got64 - plain64).abs().max())
+        check(torch.equal(got64, plain64), f"readout {plan.name} f64: "
+              f"segment_sum differs from segment_sum_plain (max abs err "
+              f"{err64})")
+        check(torch.equal(got64, plan.backward(cot64)),
+              f"readout {plan.name} f64: segment_sum differs between calls")
+        add64 = lambda: torch.zeros((r, 2), dtype=torch.float64,
+                                    device=device).index_add_(0, idx, cot64)
+        check(torch.allclose(add64(), got64, rtol=1e-12, atol=1e-12),
+              f"readout {plan.name} f64: index_add_ leaves the kernel")
+        name64 = name.replace("_f32_", "_f64_")
+        rows[name64] = dict(
+            max_abs_err=err64, entries=n, rows=r, tiles=plan.tiles,
+            calls_bit_identical=2, **_measure(
+                lambda: plan.backward_plain(cot64),
+                lambda: plan.backward(cot64), add64,
+                bytes_moved=n * 2 * 8 + n * 4 + r * 2 * 8,
+                operations=n * 2, bytes_gathered=n * 2 * 8))
+        _print_turns(f"segment_sum readout {name64} (1 launch)",
+                     rows[name64])
         w = rows[name]["a2_walk"]
         print(f"  {name}: {n} entries into {r} rows, bit-identical over 3 "
               f"calls; torch's x[idx] backward (index_put_ accumulate) "
@@ -2223,6 +2358,134 @@ def readout_rows(g, paths, device, record) -> dict:
         del walk
     rec["rows"] = rows
     return rows
+
+
+# The full dblp path readout past N·D = 2^31: D=12 is the first width
+# at which the 182,339,307 entries of the 60,779,769 paths pass it.
+FULL_READOUT_D = 12
+FULL_READOUT_SLICE = 4    # columns a plain-version pass holds at once
+WIDE_READOUT_D = 4_100    # past the earlier cap of D < 4,096
+
+
+def readout_limits(g, full_paths, device, record) -> dict:
+    """The readout backward at the shapes the kernel took no earlier:
+    (a) the full dblp path readout (``readout_plans`` over every path,
+    before the trainer's subsample) at f32 D=12, N·D past 2^31: one
+    launch, bit-equal to ``segment_sum_plain`` run on the card column
+    slice by column slice (columns are independent, so a slice keeps the
+    order), bit-identical over 2 calls, within rtol 1e-4 of
+    ``index_add_``, timed by events and on the card alone, its peak
+    device memory printed; (c) a small index at D = 4,100, f32 and f64,
+    bit-equal; (d) an empty index through autograd: one launch, all rows
+    zero.  Returns (a)'s row."""
+    import torch
+    from gnnpe_tpu_torch.models.gnn import PathGNN
+    from gnnpe_tpu_torch.models.train import readout_plans
+    from gnnpe_tpu_torch.ops import gather
+    rec = record["readout_limits"] = {}
+    model = PathGNN(dim=2, num_layers=1, labels_count=g.labels_count,
+                    device=device)
+    t0 = time.perf_counter()
+    plan = readout_plans(model, g, full_paths)[1]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n, r, d = plan.idx.numel(), plan.num_rows, FULL_READOUT_D
+    check(n * d >= 2 ** 31, f"full readout: N·D = {n * d} is under 2^31")
+    gen = torch.Generator(device).manual_seed(11)
+    cot = torch.rand((n, d), generator=gen, device=device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gather.LAUNCHES = 0
+    got = plan.backward(cot)
+    torch.cuda.synchronize()
+    kernel_peak = torch.cuda.max_memory_allocated() - base
+    check(gather.LAUNCHES == 1, f"full readout: {gather.LAUNCHES} "
+          "segment_sum launches for a backward")
+    check(torch.equal(got, plan.backward(cot)),
+          "full readout: segment_sum differs between calls")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = torch.cat([plan.backward_plain(cot[:, c:c + FULL_READOUT_SLICE])
+                       for c in range(0, d, FULL_READOUT_SLICE)], dim=1)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = float((got - plain).abs().max())
+    check(torch.equal(got, plain), "full readout: segment_sum differs from "
+          f"segment_sum_plain (max abs err {err})")
+    del plain
+    add = lambda: torch.zeros((r, d), device=device).index_add_(
+        0, plan.idx, cot)
+    check(torch.allclose(add(), got, rtol=1e-4, atol=1e-4),
+          "full readout: index_add_ leaves the kernel")
+    kern = lambda: plan.backward(cot)
+    k1, k2 = cuda_ms(kern, 3), cuda_ms(kern, 3)
+    by_bytes = (n * d * 4 + n * 4 + r * d * 4) / PEAK_BYTES_S * 1e3
+    by_ops = n * d / PEAK_FLOP_S * 1e3
+    row = dict(ms=(k1 + k2) / 2, turns_ms=[k1, k2], plain_ms=plain_ms,
+               library_ms=cuda_ms(add, 3),
+               device_ms=graph_ms(kern, calls=2, replays=3),
+               cold_ms=cold_ms(kern, iters=3),
+               bound_ms=max(by_bytes, by_ops),
+               bound_by="bytes" if by_bytes >= by_ops else "operations",
+               bytes_moved=n * d * 4 + n * 4 + r * d * 4, max_abs_err=err,
+               entries=n, rows=r, d=d, tiles=plan.tiles, build_s=build_s,
+               cotangent_bytes=n * d * 4, kernel_peak_bytes=kernel_peak,
+               calls_bit_identical=2)
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["device_share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    rec["full_paths_f32_d12"] = row
+    print(f"segment_sum full path readout: {n} entries into {r} rows at f32 "
+          f"D={d} (N·D = {n * d}, cotangent {n * d * 4} B), {plan.tiles} "
+          f"tiles, plan built in {build_s:.2f} s: 1 launch, bit-equal to "
+          f"plain (in slices of {FULL_READOUT_SLICE} columns, "
+          f"{plain_ms:.2f} ms), bit-identical over 2 calls, within rtol 1e-4 "
+          f"of index_add_; kernel {row['ms']:.4f} ms by events ("
+          f"{k1:.4f}, {k2:.4f}), on the card alone {row['device_ms']:.4f} "
+          f"ms, L2 flushed {row['cold_ms']:.4f} ms; index_add_ "
+          f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
+          f"{row['bound_by']}: {100 * row['device_share_of_bound']:.1f} % on "
+          f"the card; the kernel's peak device memory {kernel_peak} B "
+          "(output and scratch)")
+    del plan, cot, got
+
+    # (c) D = 4,100: a row of 3,000 entries spans three tiles of 1,024.
+    rng = np.random.RandomState(12)
+    idx = rng.permutation(np.concatenate([np.zeros(3_000, np.int64),
+                                          rng.randint(0, 300, 2_000)]))
+    wide = gather.GatherRows.build(idx, 300, device)
+    for dtype in (torch.float32, torch.float64):
+        g_w = torch.randn((len(idx), WIDE_READOUT_D), generator=gen,
+                          dtype=dtype, device=device)
+        gather.LAUNCHES = 0
+        got = wide.backward(g_w)
+        check(gather.LAUNCHES == 1, f"D={WIDE_READOUT_D} {dtype}: "
+              f"{gather.LAUNCHES} launches")
+        check(torch.equal(got, wide.backward_plain(g_w))
+              and torch.equal(got, wide.backward(g_w)),
+              f"D={WIDE_READOUT_D} {dtype}: segment_sum differs from "
+              "segment_sum_plain or between calls")
+    rec["wide"] = dict(d=WIDE_READOUT_D, entries=len(idx), rows=300,
+                       tiles=wide.tiles, dtypes=["float32", "float64"])
+    print(f"segment_sum at D={WIDE_READOUT_D} (f32, f64; {len(idx)} entries, "
+          f"{wide.tiles} tiles): 1 launch each, bit-equal to plain and over "
+          "2 calls")
+
+    # (d) An empty index, through autograd.
+    empty = gather.GatherRows.build(np.zeros(0, np.int64), 7, device)
+    x = torch.randn((7, 2), device=device, requires_grad=True)
+    gather.LAUNCHES = 0
+    empty(x).sum().backward()
+    check(gather.LAUNCHES == 1 and not x.grad.any(),
+          f"empty index: {gather.LAUNCHES} launches, gradient "
+          f"{x.grad.abs().max().item()}")
+    rec["empty"] = dict(rows=7, launches=1)
+    print("segment_sum on an empty index: 1 launch through autograd, all 7 "
+          "rows zero")
+    torch.cuda.synchronize()
+    return {"readout_paths_full_f32_d12": row}
 
 
 PROFILE_STEPS = 5
@@ -2581,6 +2844,7 @@ def main() -> int:
         return 1
     from gnnpe_tpu_torch.io.datasets import load_dataset, sample_query
 
+    started = time.perf_counter()
     device = torch.device("cuda", torch.cuda.current_device())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2603,7 +2867,14 @@ def main() -> int:
     rows = kernel_phase(g, device, record)
     ell_rows = ell_phase(g, device, record)
 
-    def fresh():
+    laps = record["phase_s"] = {}
+    last = [started]
+
+    def fresh(done: str):
+        """Free the card between phases; ``done`` names the phase(s) that
+        ran since the previous call, whose wall time is recorded."""
+        now = time.perf_counter()
+        laps[done], last[0] = now - last[0], now
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2612,23 +2883,23 @@ def main() -> int:
         record[prefix]["peak_device_bytes"] = (
             torch.cuda.max_memory_allocated() - base)
 
-    fresh()
+    fresh("build_data_kernel_ell")
     launches, pe_oracle = pe_phase(g, queries, device, record)
     peak("pe")
-    fresh()
+    fresh("pe")
     base = torch.cuda.memory_allocated()      # the array-mode PE index
     a1, table_eng = pe_table_phase(g, queries, device, record, pe_oracle)
     launches += a1
     peak("pe_table", base)
-    fresh()
+    fresh("pe_table")
     launches += pe_streamed_phase(g, queries, device, record, pe_oracle,
                                   table_eng)
     del table_eng
-    fresh()
+    fresh("pe_streamed")
     a1, pge_oracle = pge_phase(g, queries, device, record)
     launches += a1
     peak("pge")
-    fresh()
+    fresh("pge")
     (a1, a2_multi, seg_multi), a1_rect, a2_rect = multi_device_phase(
         g, queries, device, record, pe_oracle, pge_oracle,
         record["pe_table"]["index_file"])
@@ -2636,45 +2907,58 @@ def main() -> int:
     rows.update(a1_rect)
     ell_rows.update(a2_rect)
     peak("multi")
-    fresh()
+    fresh("multi")
     launches += ladder_phase(device, record, pe_oracle, pge_oracle)
     peak("ladder")
-    fresh()
+    fresh("ladder")
     hier_rows, a2_hier = uniform_ell_phase(g, queries, device, record,
                                            pe_oracle["wants"])
     ell_rows.update(hier_rows)
     peak("uniform_ell")
-    fresh()
-    paths = pe_oracle["paths"]
+    fresh("uniform_ell")
+    pe_host = dict(paths=pe_oracle["paths"], vertices=pe_oracle["vertices"])
+    paths = pe_host["paths"]
     paths = paths[np.sort(np.random.RandomState(3).choice(
         len(paths), size=500_000, replace=False))]
     seg_rows = readout_rows(g, paths, device, record)
     peak("readout")
-    fresh()
+    fresh("readout")
+    seg_rows.update(readout_limits(g, pe_host["paths"], device, record))
+    peak("readout_limits")
+    fresh("readout_limits")
     profile_phase(g, paths, device, record,
                   pge_oracle["engine"].attach_device(device), queries)
     del pe_oracle, pge_oracle["engine"], paths
-    fresh()
+    fresh("profile")
     launches += pge_device_phase(g, queries, device, record, pge_oracle)
     peak("pge_device")
     del pge_oracle
-    fresh()
+    fresh("pge_device")
     (a1, a2, seg_train), seg_fit = train_phase(g, device, record)
     launches += a1
     peak("train")
-    fresh()
+    fresh("train")
+    a1, a2_streamed, seg_streamed = train_streamed_phase(g, device, record,
+                                                         pe_host)
+    launches += a1
+    del pe_host
+    peak("train_streamed")
+    fresh("train_streamed")
     ell_rows.update(probe_phase(device, smi, record))
     peak("probe")
-    fresh()
+    fresh("probe")
     a1_bench, a2_bench, bench_launches = bench_phase(device, record)
     rows.update(a1_bench)
     ell_rows.update(a2_bench)
     launches += bench_launches[0]
     peak("bench")
+    fresh("bench")
+    print("phase seconds: " + json.dumps(laps))
     kernel_launches = dict(
         spmm_csr=launches,
-        ell_gather_sum=a2 + a2_multi + a2_hier + bench_launches[1],
-        segment_sum=seg_train + seg_fit + seg_multi)
+        ell_gather_sum=(a2 + a2_streamed + a2_multi + a2_hier
+                        + bench_launches[1]),
+        segment_sum=seg_train + seg_fit + seg_streamed + seg_multi)
     check(min(kernel_launches.values()) > 0,
           f"a kernel did not launch on the main paths: {kernel_launches}")
     foreign = sorted(m for m in sys.modules

@@ -3,7 +3,8 @@
 //   out[r, c] = sum_{j = offsets[r]}^{offsets[r+1]-1} g[perm[j], c],
 // where perm [N] is the stable argsort of idx and offsets [R+1] the CSR row
 // pointer of the transposed index (bincount, then cumsum).  Rows that no
-// entry names are 0.0.  f32 g [N, d] and out [R, d], row-major.
+// entry names are 0.0.  g [N, d] and out [R, d] row-major, f32 or f64
+// (one entry each, gnnpe_segment_sum_f32 and _f64), any d >= 1.
 //
 // What it replaces.  The trainer's label lookup and path readout
 // (ops/gather.py:GatherRows): before, the transposed index walked as a
@@ -17,12 +18,14 @@
 // kernel to the host (unlike A1's f64 VDE, csrc/spmm_csr.cu): a row may be
 // split across blocks, as long as the order is fixed.
 //
-// Bound: bytes.  Per entry the cotangent row is read once (d * 4 B) and
-// perm once (4 B); per output row one row is written (d * 4 B).  At the
+// Bound: bytes.  Per entry the cotangent row is read once (d * s B for
+// elements of s B) and perm once (4 B); per output row one row is written
+// (d * s B).  At the
 // trainer's d = 2 the path readout (1,500,000 entries into 317,080 rows)
 // must move 20.5 MB, 6.1 us at 3.35 TB/s.  What the kernel adds to that:
 // the window rows (4 B per W entries), the offsets of the rows it walks
-// (4 B a row, mostly from L1) and one carry of d floats a tile.  An 8-byte
+// (4 B a row, mostly from L1) and two pieces of d elements a tile (the
+// carry and the incoming row's piece, below).  An 8-byte
 // gathered row is a quarter of a 32-byte sector; the path readout's
 // cotangent (12 MB) and the label lookup's (2.5 MB) fit in the 50 MB L2,
 // so each sector comes from device memory about once however the gathers
@@ -55,23 +58,49 @@
 // thread.  The row of the window's first entry comes from the plan
 // (window_rows), later rows from the offsets as the window crosses them.
 // A row wider than one pack is summed one pack at a time (the column loop
-// around the window pass): only d = 2 is on the timed path, and the other
-// widths keep the same order column by column.  A tile publishes at most
-// one carry (the piece of the row that crosses its end), so a carry is d
-// floats a tile.  Blocks take their tiles in launch order from a counter,
-// so the tiles a block waits for belong to blocks already running (the
-// single-pass scan's rule); the wait gives up with a trap after 2^25
-// polls (seconds) instead of hanging.  The block that takes the last tile
-// puts the counter back to 0 and each waiting block clears the flags it
-// read, so the scratch is clean after every launch, in a CUDA graph too; a
-// plan's launches must stay on one stream, in order.  A first design
-// summed every crossing row in the last block to finish (a ticket): on an
-// H100 at the dblp shapes it took 0.0106-0.0137 ms (labels) and
-// 0.0254-0.0290 ms (paths) on the card against this one's 0.0096 and
-// 0.0251 (readout_sweep).
+// around the window pass): only d = 2 is on the trainer's path, and the
+// other widths keep the same order column by column.  A tile publishes at
+// most one carry (the piece of the row that crosses its end), so a carry
+// is d elements a tile.  The piece of the row that came in from earlier
+// tiles and ends in this one ("own", summed by thread 0, whose window
+// starts the tile, and added last by the same thread) is d elements a
+// tile too.  The carries live in the plan's global scratch ([2, tiles, d]:
+// the carries, then room for the own pieces).  Own lives in shared memory
+// beside the window heads while it takes at most kOwnSharedBytes (d <=
+// 2,048 floats or 1,024 doubles), and in the scratch's second half beyond
+// that, so no width needs more than 16 KB of shared memory: an earlier
+// revision kept own in shared memory at every width, which capped d below
+// 4,096 under the default 48 KB (raising the block's limit would still cap
+// it near 55,000 floats).  The placement is a template argument: on an
+// H100 (readout_sweep of the shared-memory-only revision and this one in
+// turns, the dblp readout at f32 d = 2, on the card alone), own in global
+// memory at every width cost the path readout 4.6 % (0.0263 against
+// 0.0252 ms), and a placement chosen at run time, through one generic
+// pointer, 3.4 % (and the label lookup 3.2 %); as a template argument the
+// two are within 0.3 % and 1.3 % of the earlier revision.  Own is written
+// before it is read in every launch, so it needs no clearing.
+//
+// Blocks take their tiles in launch order from a counter, so the tiles a
+// block waits for belong to blocks already running (the single-pass
+// scan's rule); the wait gives up with a trap after 2^25 polls (seconds)
+// instead of hanging.  The block that takes the last tile puts the
+// counter back to 0 and each waiting block clears the flags it read, so
+// flags and counter are zero after every launch, and a CUDA graph replays
+// it; a plan's launches must stay on one stream, in order.  A first
+// design summed every crossing row in the last block to finish (a
+// ticket): on an H100 at the dblp shapes it took 0.0106-0.0137 ms
+// (labels) and 0.0254-0.0290 ms (paths) on the card against this one's
+// 0.0096 and 0.0251 (readout_sweep).
 //
 // W and threads were chosen with python -m
 // gnnpe_tpu_torch.kernels.readout_sweep (ops/gather.py says which run).
+//
+// Limits.  N < 2^31 and R < 2^31 (perm, offsets and the row ids are
+// int32); d >= 1, with no upper bound but memory.  Every address that
+// scales with N * d or R * d (the gathers, the three kinds of store, the
+// carries and the own pieces) is computed in 64 bits, so N * d and R * d
+// may pass 2^31.  An empty index (N = 0) is one tile with no entries, and
+// its zero pass writes every row, so it is one launch like any other.
 //
 // C ABI for ctypes: the plan's pointers and sizes come in one struct
 // (SegmentPlan below), so a call converts 7 arguments; the return value
@@ -93,6 +122,7 @@ using gather_rows::zero_pack;
 constexpr int kMaxThreads = 512;
 constexpr int kUnroll = 8;
 constexpr long long kMaxSpins = 1LL << 25;   // polls of 32 ns and more
+constexpr long long kOwnSharedBytes = 8192;  // own in shared memory up to
 
 // Mirrored by ops/gather.py:_SegmentPlan (ctypes).
 struct SegmentPlan {
@@ -100,7 +130,8 @@ struct SegmentPlan {
   const int* offsets;       // [rows + 1]
   const int* window_rows;   // [ceil(n / window)]
   const int* tile_rows;     // [tiles + 1]
-  float* carry;             // [tiles, d]
+  void* carry;              // [2, tiles, d] of g's type: carries, own pieces
+                            // (those past kOwnSharedBytes)
   int* flags;               // [tiles], zero between launches
   unsigned int* counter;    // [1], zero between launches
   long long n;
@@ -110,18 +141,18 @@ struct SegmentPlan {
   int tiles;
 };
 
-template <int VEC>
-__device__ __forceinline__ Pack<float, VEC> load_pack_l2(const float* p) {
-  using R = typename gather_rows::Raw<4 * VEC>::type;
-  Pack<float, VEC> out;
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load_pack_l2(const T* p) {
+  using R = typename gather_rows::Raw<sizeof(T) * VEC>::type;
+  Pack<T, VEC> out;
   *reinterpret_cast<R*>(&out) = __ldcg(reinterpret_cast<const R*>(p));
   return out;
 }
 
-template <int VEC>
-__device__ __forceinline__ Pack<float, VEC> shfl_pack(const Pack<float, VEC>& v,
-                                                      int lane) {
-  Pack<float, VEC> out;
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> shfl_pack(const Pack<T, VEC>& v,
+                                                  int lane) {
+  Pack<T, VEC> out;
 #pragma unroll
   for (int e = 0; e < VEC; ++e) {
     out.e[e] = __shfl_sync(0xffffffffu, v.e[e], lane);
@@ -129,13 +160,15 @@ __device__ __forceinline__ Pack<float, VEC> shfl_pack(const Pack<float, VEC>& v,
   return out;
 }
 
-template <int VEC, int W>
+// OWN_SHARED: the own piece lives in shared memory after the window heads
+// (d * sizeof(T) <= kOwnSharedBytes), else in the scratch's second half;
+// a template argument, so that each kernel knows its address space.
+template <typename T, int VEC, int W, bool OWN_SHARED>
 __global__ void __launch_bounds__(kMaxThreads)
-segment_sum_kernel(const SegmentPlan p, const float* __restrict__ g,
-                   float* __restrict__ out, int d) {
+segment_sum_kernel(const SegmentPlan p, const T* __restrict__ g,
+                   T* __restrict__ out, int d) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Pack<float, VEC>* head = reinterpret_cast<Pack<float, VEC>*>(smem);
-  float* own = reinterpret_cast<float*>(head + blockDim.x);   // [d]
+  Pack<T, VEC>* head = reinterpret_cast<Pack<T, VEC>*>(smem);
   __shared__ int s_tile;
 
   const int threads = blockDim.x;
@@ -160,8 +193,7 @@ segment_sum_kernel(const SegmentPlan p, const float* __restrict__ g,
   for (int r = own_lo + i; r < own_hi; r += threads) {
     if (__ldg(offsets + r) == __ldg(offsets + r + 1)) {
       for (int c = 0; c < d; c += VEC) {
-        store_pack<float, VEC>(out + (long long)r * d + c,
-                               zero_pack<float, VEC>());
+        store_pack<T, VEC>(out + (long long)r * d + c, zero_pack<T, VEC>());
       }
     }
   }
@@ -181,33 +213,36 @@ segment_sum_kernel(const SegmentPlan p, const float* __restrict__ g,
     }
   }
   const int row0 = has ? __ldg(p.window_rows + a / W) : 0;
-  float* const carry = p.carry + (long long)t * d;
+  T* const scratch = static_cast<T*>(p.carry);
+  T* const carry = scratch + (long long)t * d;
+  T* const own = OWN_SHARED ? reinterpret_cast<T*>(head + threads)
+                            : scratch + ((long long)p.tiles + t) * d;
   bool published = false;
 
   for (int c0 = 0; c0 < d; c0 += VEC) {
-    Pack<float, VEC> v[W];
+    Pack<T, VEC> v[W];
 #pragma unroll
     for (int k = 0; k < W; ++k) {
-      if (a + k < b) v[k] = load_pack<float, VEC>(g + (long long)q[k] * d + c0);
+      if (a + k < b) v[k] = load_pack<T, VEC>(g + (long long)q[k] * d + c0);
     }
     bool pending = false;
     int prow = 0;
     long long pbegin = 0, pend = 0;
-    Pack<float, VEC> pacc = zero_pack<float, VEC>();
+    Pack<T, VEC> pacc = zero_pack<T, VEC>();
     if (has) {
       int r = row0;
       long long r_begin = __ldg(offsets + r), r_end = __ldg(offsets + r + 1);
       bool first = true;
-      Pack<float, VEC> acc = zero_pack<float, VEC>();
+      Pack<T, VEC> acc = zero_pack<T, VEC>();
       // A run that ends inside the window: published for its walker, the
       // tile's piece of a row that started in an earlier tile, or a row.
       auto finish = [&]() {
         if (first && i > 0 && r_begin < a) {
           head[i] = acc;
         } else if (first && r_begin < base) {
-          store_pack<float, VEC>(own + c0, acc);
+          store_pack<T, VEC>(own + c0, acc);
         } else {
-          store_pack<float, VEC>(out + (long long)r * d + c0, acc);
+          store_pack<T, VEC>(out + (long long)r * d + c0, acc);
         }
       };
 #pragma unroll
@@ -220,7 +255,7 @@ segment_sum_kernel(const SegmentPlan p, const float* __restrict__ g,
               r_begin = r_end;
               r_end = __ldg(offsets + r + 1);
             } while (r_end <= a + k);
-            acc = zero_pack<float, VEC>();
+            acc = zero_pack<T, VEC>();
             first = false;
           }
           add_pack(acc, v[k]);
@@ -244,7 +279,7 @@ segment_sum_kernel(const SegmentPlan p, const float* __restrict__ g,
       const long long stop = min(pend, tile_end);
       const int windows = (int)((stop - base + W - 1) / W);
       for (int k = i + 1; k < windows; k += kUnroll) {
-        Pack<float, VEC> h[kUnroll];
+        Pack<T, VEC> h[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           if (k + u < windows) h[u] = head[k + u];
@@ -255,12 +290,12 @@ segment_sum_kernel(const SegmentPlan p, const float* __restrict__ g,
         }
       }
       if (pend > tile_end) {
-        store_pack<float, VEC>(carry + c0, pacc);   // for a later tile
+        store_pack<T, VEC>(carry + c0, pacc);   // for a later tile
         published = true;
       } else if (pbegin < base) {
-        store_pack<float, VEC>(own + c0, pacc);
+        store_pack<T, VEC>(own + c0, pacc);
       } else {
-        store_pack<float, VEC>(out + (long long)prow * d + c0, pacc);
+        store_pack<T, VEC>(out + (long long)prow * d + c0, pacc);
       }
     }
     __syncthreads();  // head is written again for the next columns
@@ -271,7 +306,8 @@ segment_sum_kernel(const SegmentPlan p, const float* __restrict__ g,
   }
 
   // The row that came in from earlier tiles and ends here: warp 0 waits
-  // for their carries, adds them in tile order and this tile's piece last.
+  // for their carries, adds them in tile order and this tile's piece last
+  // (thread 0 wrote that piece to own above).
   if (i >= 32 || base >= p.n || base == 0) return;
   const int in_row = __ldg(p.window_rows + base / W);
   const long long in_begin = __ldg(offsets + in_row);
@@ -287,34 +323,34 @@ segment_sum_kernel(const SegmentPlan p, const float* __restrict__ g,
   __syncwarp();
   __threadfence();
   for (int c0 = 0; c0 < d; c0 += VEC) {
-    Pack<float, VEC> acc = zero_pack<float, VEC>();
+    Pack<T, VEC> acc = zero_pack<T, VEC>();
     for (int s0 = t0; s0 < t; s0 += 32) {
-      Pack<float, VEC> mine = zero_pack<float, VEC>();
+      Pack<T, VEC> mine = zero_pack<T, VEC>();
       if (s0 + i < t) {
-        mine = load_pack_l2<VEC>(p.carry + (long long)(s0 + i) * d + c0);
+        mine = load_pack_l2<T, VEC>(scratch + (long long)(s0 + i) * d + c0);
       }
       const int m = min(32, t - s0);
-      for (int u = 0; u < m; ++u) add_pack(acc, shfl_pack<VEC>(mine, u));
+      for (int u = 0; u < m; ++u) add_pack(acc, shfl_pack<T, VEC>(mine, u));
     }
     if (i == 0) {
-      add_pack(acc, *reinterpret_cast<const Pack<float, VEC>*>(own + c0));
-      store_pack<float, VEC>(out + (long long)in_row * d + c0, acc);
+      add_pack(acc, *reinterpret_cast<const Pack<T, VEC>*>(own + c0));
+      store_pack<T, VEC>(out + (long long)in_row * d + c0, acc);
     }
   }
   // Each flag is read by this warp alone: clear it for the next launch.
   for (int s = t0 + i; s < t; s += 32) p.flags[s] = 0;
 }
 
-template <int VEC>
-int launch_vec(const SegmentPlan& p, const float* g, float* out, int d,
+template <typename T, int VEC, bool OWN_SHARED>
+int launch_own(const SegmentPlan& p, const T* g, T* out, int d,
                cudaStream_t stream) {
-  const size_t shared = (size_t)p.threads * VEC * sizeof(float)
-                        + (size_t)d * sizeof(float);
+  const size_t shared = (size_t)p.threads * VEC * sizeof(T)
+                        + (OWN_SHARED ? (size_t)d * sizeof(T) : 0);
   const unsigned blocks = (unsigned)p.tiles;
 #define GNNPE_SEGMENT_CASE(W)                                              \
   case W:                                                                  \
-    segment_sum_kernel<VEC, W><<<blocks, p.threads, shared, stream>>>(     \
-        p, g, out, d);                                                     \
+    segment_sum_kernel<T, VEC, W, OWN_SHARED>                              \
+        <<<blocks, p.threads, shared, stream>>>(p, g, out, d);             \
     break;
   switch (p.window) {
     GNNPE_SEGMENT_CASE(4)
@@ -327,31 +363,57 @@ int launch_vec(const SegmentPlan& p, const float* g, float* out, int d,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+template <typename T, int VEC>
+int launch_vec(const SegmentPlan& p, const T* g, T* out, int d,
+               cudaStream_t stream) {
+  if ((long long)d * sizeof(T) <= kOwnSharedBytes) {
+    return launch_own<T, VEC, true>(p, g, out, d, stream);
+  }
+  return launch_own<T, VEC, false>(p, g, out, d, stream);
+}
 
 // One launch over plan->tiles blocks of plan->threads threads (a multiple
 // of 32 up to 512), each summing window * threads sorted entries.  vec is
-// the columns per pack (4, 2 or 1: d and the alignment of g, out and the
-// carry must be multiples of it); the shared memory is threads * vec + d
-// floats, under 48 KB for d < 4,096.
-extern "C" int gnnpe_segment_sum_f32(int device, const void* plan,
-                                     const void* g, void* out, int d,
-                                     int vec, void* stream) {
+// the elements per pack (4, 2 or 1 for float, 2 or 1 for double: 16 bytes
+// at most; d and the alignment of g, out and the scratch must be multiples
+// of it); the shared memory is threads * vec elements (at most 8 KB) and
+// own where it fits kOwnSharedBytes.
+template <typename T>
+int launch(int device, const void* plan, const void* g, void* out, int d,
+           int vec, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const SegmentPlan& p = *(const SegmentPlan*)plan;
   if (p.threads < 32 || p.threads > kMaxThreads || p.threads % 32
-      || p.tiles < 1 || p.rows < 1 || d < 1 || d >= 4096 || p.n < 0
+      || p.tiles < 1 || p.rows < 1 || d < 1 || p.n < 0
       || (long long)p.tiles * p.threads * p.window < p.n) {
     return (int)cudaErrorInvalidValue;
   }
-  const float* gp = (const float*)g;
-  float* op = (float*)out;
+  const T* gp = (const T*)g;
+  T* op = (T*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (vec) {
-    case 4: return launch_vec<4>(p, gp, op, d, s);
-    case 2: return launch_vec<2>(p, gp, op, d, s);
-    case 1: return launch_vec<1>(p, gp, op, d, s);
+    case 4:
+      if constexpr (sizeof(T) * 4 <= 16) {
+        return launch_vec<T, 4>(p, gp, op, d, s);
+      }
+      return (int)cudaErrorInvalidValue;
+    case 2: return launch_vec<T, 2>(p, gp, op, d, s);
+    case 1: return launch_vec<T, 1>(p, gp, op, d, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" int gnnpe_segment_sum_f32(int device, const void* plan,
+                                     const void* g, void* out, int d,
+                                     int vec, void* stream) {
+  return launch<float>(device, plan, g, out, d, vec, stream);
+}
+
+extern "C" int gnnpe_segment_sum_f64(int device, const void* plan,
+                                     const void* g, void* out, int d,
+                                     int vec, void* stream) {
+  return launch<double>(device, plan, g, out, d, vec, stream);
 }

@@ -2,20 +2,24 @@
 gnnpe_tpu/frontends/train_payoff.py with ``device=True``).
 
 Trains a PathGNN with the discriminative dominance objective
-(models/train.py), serves it through the unchanged resident device
-search and host refinement (engine.py with ``embedder=``), and measures
-on held-out tree queries what training buys over the fixed label-seeded
-VDE: the candidate-set size and the online latency by stage.  The PGE
-variant builds its groups on the device (``offline(device=True)``); the
-PE variant enumerates its paths and builds its table-mode index there
-(``offline(device=True)``, ``build_index(table=True)``).  PGE's answers
+(models/train.py), serves it through the unchanged device search and
+host refinement (engine.py with ``embedder=``), and measures on held-out
+tree queries what training buys over the fixed label-seeded VDE: the
+candidate-set size, the online latency by stage, and the blocks and
+chunks the search walks.  The PGE variant builds its groups on the
+device (``offline(device=True)``); the PE variant enumerates its paths
+there (``offline(device=True)``) and builds its table-mode index
+(``build_index(table=True)``): resident where it fits, else, or with
+``force_streamed``, streamed from the host (``StreamedPESearch``, its
+block pool prefilled before the queries), where fewer chunks mean fewer
+bytes uploaded.  PGE's answers
 are exact, so any dominance-preserving embedding must give the same
 answers; PE's counts can in principle depend on the candidate sets (the
 reference's one-orientation dedup), and ``run`` asserts equality per
 query for both as gnnpe_tpu does, so such a case would be loud.
 
     python -m gnnpe_tpu_torch.frontends.train_payoff --dataset dblp \\
-        --device cuda [--variant pe]
+        --device cuda [--variant pe [--force-streamed]]
 
 Prints one JSON row per embedder to stdout; writes files only where
 ``--out`` (JSON lines, appended) or ``--md`` (a table) name them.
@@ -36,17 +40,21 @@ MAX_TRAIN_PATHS = 500_000
 
 
 def evaluate(eng, queries):
-    """(summary, results): per-query answers, candidate sums and stage
-    timings, and the surviving blocks per query; ``results`` are the
-    engine's ``MatchResult``s."""
-    results, total_ms, survived = [], [], []
+    """(summary, results, stats): per-query answers, candidate sums and
+    stage timings, and the surviving blocks and phase-2 chunks per
+    query; ``results`` are the engine's ``MatchResult``s, ``stats`` the
+    search's ``last_stats`` of each query (a streamed index's hold its
+    cache hits, misses and uploaded bytes)."""
+    results, total_ms, survived, chunks, stats = [], [], [], [], []
     for q in queries:
         t0 = time.perf_counter()
         r = eng.online(q)
         total_ms.append((time.perf_counter() - t0) * 1e3)
         results.append(r)
         st = eng.searcher.last_stats
+        stats.append(dict(st) if st else None)
         survived.append(st["survived"] if st else 0)
+        chunks.append(st["chunks"] if st else 0)
     search = [r.timings_ms["search"] for r in results]
     refine = [r.timings_ms["refine"] for r in results]
     summary = dict(
@@ -60,16 +68,17 @@ def evaluate(eng, queries):
         refine_min_ms=float(np.min(refine)),
         refine_max_ms=float(np.max(refine)),
         online_p50_ms=float(np.median(total_ms)),
+        chunks_mean=float(np.mean(chunks)),
         blocks_survived_mean=float(np.mean(survived)))
-    return summary, results
+    return summary, results, stats
 
 
 @dataclass
 class Payoff:
     """What ``run`` measured: the printed rows, the training state, the
-    held-out queries with each embedder's results, the trained engine
-    (its ``vertices`` are the embedder's data-graph VDE) and the
-    training paths."""
+    held-out queries with each embedder's results and search stats
+    (``evaluate``'s), the trained engine (its ``vertices`` are the
+    embedder's data-graph VDE) and the training paths."""
     rows: List[dict]
     state: object
     queries: list
@@ -77,6 +86,8 @@ class Payoff:
     trained: list
     engine: object
     train_paths: np.ndarray
+    fixed_stats: list
+    trained_stats: list
 
 
 def sample_train_paths(g, length: int, seed: int) -> np.ndarray:
@@ -96,11 +107,17 @@ def sample_train_paths(g, length: int, seed: int) -> np.ndarray:
 def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
         steps: int = 300, vde_dim: int = 2, l: int = 2, seed: int = 0,
         learning_rate: float = 1e-2, max_answers: int = 100_000,
-        variant: str = "pge", *, device) -> Payoff:
-    """Fixed VDE, then a trained PathGNN, each served by a resident
-    engine of ``variant`` ("pge" or "pe") built on ``device`` over the
-    same held-out queries.  The binned layout's hubs are priced with
-    ``device``'s prices."""
+        variant: str = "pge", *, device,
+        force_streamed: bool = False) -> Payoff:
+    """Fixed VDE, then a trained PathGNN, each served by an engine of
+    ``variant`` ("pge" or "pe") built on ``device`` over the same
+    held-out queries.  PE builds resident where the index fits and
+    streamed otherwise, or always streamed with ``force_streamed`` (PGE
+    ignores it); a streamed index prefills its block pool for up to 60 s
+    before the queries, and PE rows carry the ``mode``.  The fixed
+    engine's index is closed before the trained one is built, so the
+    two are never on the device together.  The binned layout's hubs are
+    priced with ``device``'s prices."""
     import torch
 
     from gnnpe_tpu_torch.config import PEConfig, PGEConfig
@@ -126,12 +143,26 @@ def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
             return eng.offline(device=True).build_index().attach_device(
                 device)
         eng = PEEngine(cfg, g, device, embedder=embedder)
-        return eng.offline(device=True).build_index(table=True)
+        eng.offline(device=True).build_index(
+            table=True, resident=False if force_streamed else None)
+        if eng.searcher.streamed:
+            eng.searcher.prefill_cache(max_seconds=60.0)
+        return eng
 
     # Held-out queries: seeds disjoint from the training pair draws.
     qs = [sample_query(g, query_size, tree=True, seed=10_000 + seed + i)
           for i in range(queries)]
-    base, fixed = evaluate(make_engine(), qs)
+    fixed_eng = make_engine()
+    mode = None
+    if variant == "pe":
+        mode = "streamed" if fixed_eng.searcher.streamed else "resident"
+    base, fixed, fixed_stats = evaluate(fixed_eng, qs)
+    close = getattr(fixed_eng.searcher, "close", None)
+    if close is not None:
+        close()
+    del fixed_eng, close
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     print(f"[payoff:{dataset}] fixed VDE: cands={base['cand_sum_mean']:.0f}"
           f" p50={base['online_p50_ms']:.1f}ms", file=sys.stderr)
 
@@ -150,7 +181,7 @@ def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
         torch.cuda.synchronize(device)
     train_s = time.perf_counter() - t0
     engine = make_engine(model_embedder(model, device))
-    tr, trained = evaluate(engine, qs)
+    tr, trained, trained_stats = evaluate(engine, qs)
     if tr["answers"] != base["answers"]:
         raise AssertionError(f"exactness violated: {tr['answers']} vs "
                              f"{base['answers']}")
@@ -163,6 +194,8 @@ def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
     common = dict(dataset=dataset, variant=variant, vde_dim=vde_dim, l=l,
                   queries=queries, engine="device-packed",
                   device=str(device))
+    if mode is not None:
+        common["mode"] = mode
     rows = [
         dict(common, embedder="fixed-vde",
              **{k: v for k, v in base.items() if k != "answers"},
@@ -176,7 +209,8 @@ def run(dataset: str = "yeast", queries: int = 20, query_size: int = 8,
              candidate_reduction_pct=red),
     ]
     return Payoff(rows=rows, state=state, queries=qs, fixed=fixed,
-                  trained=trained, engine=engine, train_paths=train_paths)
+                  trained=trained, engine=engine, train_paths=train_paths,
+                  fixed_stats=fixed_stats, trained_stats=trained_stats)
 
 
 def write_md(rows, path: str) -> None:
@@ -188,17 +222,19 @@ def write_md(rows, path: str) -> None:
         " answers equal per query.",
         "",
         "| dataset | device | embedder | D | mean Σ\\|cands\\| | reduction "
-        "| blocks | search p50 ms | refine p50 ms | online p50 ms |",
-        "|---|---|---|---|---|---|---|---|---|---|",
+        "| blocks | chunks | search p50 ms | refine p50 ms | online p50 ms |",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
     ]
     for r in rows:
         red = (f"-{r['candidate_reduction_pct']}%"
                if "candidate_reduction_pct" in r else "—")
+        device = r["device"] + (f" ({r['mode']})" if "mode" in r else "")
         lines.append(
-            f"| {r['dataset']} | {r['device']} | {r['embedder']} | "
+            f"| {r['dataset']} | {device} | {r['embedder']} | "
             f"{r['vde_dim']} | {r['cand_sum_mean']} | {red} | "
-            f"{r['blocks_survived_mean']} | {r['search_p50_ms']} | "
-            f"{r['refine_p50_ms']} | {r['online_p50_ms']} |")
+            f"{r['blocks_survived_mean']} | {r['chunks_mean']} | "
+            f"{r['search_p50_ms']} | {r['refine_p50_ms']} | "
+            f"{r['online_p50_ms']} |")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
 
@@ -220,6 +256,10 @@ def main(argv=None):
     ap.add_argument("--device", required=True,
                     help="torch device for training, VDE and the search "
                          "(e.g. cuda, cuda:0, cpu)")
+    ap.add_argument("--force-streamed", action="store_true",
+                    help="PE only: serve both embedders through the "
+                         "streamed index (StreamedPESearch) even where the "
+                         "table would fit on the device")
     ap.add_argument("--out", help="append the rows as JSON lines here")
     ap.add_argument("--md", help="write the rows as a Markdown table here")
     args = ap.parse_args(argv)
@@ -227,7 +267,8 @@ def main(argv=None):
                query_size=args.query_size, steps=args.steps,
                vde_dim=args.vde_dim, l=args.l, seed=args.seed,
                learning_rate=args.lr, max_answers=args.max_answers,
-               variant=args.variant, device=args.device).rows
+               variant=args.variant, device=args.device,
+               force_streamed=args.force_streamed).rows
     for r in rows:
         print(json.dumps(r))
     if args.out:

@@ -44,8 +44,8 @@ _SIGNATURES = {
         "gnnpe_ell_max_tables": [], "gnnpe_ell_threads": []},
     # (device, plan, g, out, d, vec, stream); plan: a SegmentPlan struct
     "segment_sum": {
-        "gnnpe_segment_sum_f32": [_c.c_int] + [_c.c_void_p] * 3
-        + [_c.c_int] * 2 + [_c.c_void_p]},
+        name: [_c.c_int] + [_c.c_void_p] * 3 + [_c.c_int] * 2 + [_c.c_void_p]
+        for name in ("gnnpe_segment_sum_f32", "gnnpe_segment_sum_f64")},
 }
 
 

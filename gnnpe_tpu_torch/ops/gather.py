@@ -7,8 +7,9 @@ backward, ``grad_x[r] = Σ_{k: idx[k] = r} g[k]``, is not a scatter: the
 plan holds the transposed index (``perm``, the stable argsort of
 ``idx``, and ``offsets``, its CSR row pointer), and the backward is the
 segment sum ``out[r] = Σ_{j=offsets[r]}^{offsets[r+1]-1} g[perm[j]]``:
-``segment_sum``, on a CUDA tensor one launch of csrc/segment_sum.cu, on a
-CPU tensor ``segment_sum_plain``; any other device raises.
+``segment_sum``, on a CUDA tensor one launch of csrc/segment_sum.cu (f32
+or f64, any width, ``N·D`` past 2^31, an empty index), on a CPU tensor
+``segment_sum_plain``; any other device raises.
 
 Why: torch's backward of ``x[idx]`` sorts the index and then, at a narrow
 row, adds each index's duplicates one after another, so a row named 10^5
@@ -24,9 +25,10 @@ bounds it on the card is bytes: the cotangent [N, D] and ``perm`` read
 once, the gradient written once.  The plan holds what the kernel's order
 needs beside the index: the row of each window's first entry, the first
 row each tile owns (its empty rows are written 0.0 there), and the
-scratch of the rows that cross tiles (a carry of D floats a tile, a flag
-a tile and the counter the blocks take their tiles from), which every
-launch leaves zeroed.
+scratch of the rows that cross tiles (two pieces of D elements a tile,
+the carry it publishes and the piece of the row that ends in it, a flag
+a tile and the counter the blocks take their tiles from; every launch
+leaves the flags and the counter zeroed).
 
 ``WINDOW`` and ``THREADS`` were chosen with
 ``python -m gnnpe_tpu_torch.kernels.readout_sweep`` (the trainer's dblp
@@ -42,6 +44,7 @@ which varies too much between points to rank them.
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -59,6 +62,10 @@ WINDOW = 4       # sorted entries a thread sums (4, 8 or 16)
 THREADS = 256    # threads a block (a multiple of 32 up to 512)
 
 LAUNCHES = 0
+
+# The cotangent types the kernel is built for, and its C entry of each.
+KERNEL_DTYPES = {torch.float32: "gnnpe_segment_sum_f32",
+                 torch.float64: "gnnpe_segment_sum_f64"}
 
 
 def tile_layout(offsets: np.ndarray, window: int = WINDOW,
@@ -163,23 +170,37 @@ class _SegmentPlan(ctypes.Structure):
                                           "tiles")]
 
 
-_KERNEL = None
+_KERNELS: dict = {}
 
 
-def _kernel():
-    global _KERNEL
-    if _KERNEL is None:
+def _kernel(dtype: torch.dtype):
+    if dtype not in _KERNELS:
         from gnnpe_tpu_torch.kernels._build import load
-        _KERNEL = load("segment_sum").gnnpe_segment_sum_f32
-    return _KERNEL
+        _KERNELS[dtype] = getattr(load("segment_sum"), KERNEL_DTYPES[dtype])
+    return _KERNELS[dtype]
+
+
+def check_kernel_shape(n: int, d: int, dtype: torch.dtype) -> None:
+    """Raise unless csrc/segment_sum.cu takes a cotangent of ``n``
+    entries of width ``d`` and type ``dtype``: f32 or f64, any ``d >=
+    0``, ``n < 2^31`` (``perm`` and ``offsets`` are int32; ``n·d`` may
+    pass 2^31, the kernel's addresses are 64-bit)."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the segment_sum kernel takes float32 or float64, "
+                        f"got {dtype}")
+    if not 0 <= n < 2 ** 31 or d < 0:
+        raise ValueError(f"the segment_sum kernel takes N < 2^31 entries "
+                         f"and D >= 0, got N={n}, D={d}")
 
 
 def segment_sum(g: torch.Tensor, plan: "GatherRows") -> torch.Tensor:
     """The segment sum of the cotangent ``g`` [N, D] over ``plan``'s
     transposed index: one launch of csrc/segment_sum.cu on a CUDA tensor
-    (f32), ``segment_sum_plain`` on a CPU tensor; any other device
-    raises.  The output is allocated with ``torch.empty``: the kernel
-    writes every row."""
+    (``check_kernel_shape`` says which; an empty index is one launch
+    too, D = 0 returns the empty [R, 0] output without one),
+    ``segment_sum_plain`` on a CPU tensor; any other device raises.  The
+    output is allocated with ``torch.empty``: the kernel writes every
+    row."""
     global LAUNCHES
     n = plan.perm.numel()
     if g.dim() != 2 or g.shape[0] != n:
@@ -196,19 +217,18 @@ def segment_sum(g: torch.Tensor, plan: "GatherRows") -> torch.Tensor:
                                  plan.threads)
     if g.device.type != "cuda":
         raise ValueError(f"no segment_sum kernel for device {g.device}")
-    if g.dtype != torch.float32:
-        raise TypeError(f"the segment_sum kernel takes float32, got "
-                        f"{g.dtype}")
     d = g.shape[1]
-    if n * d >= 2 ** 31 or not 0 < d < 4096:
-        raise ValueError(f"the segment_sum kernel takes 0 < D < 4096 and "
-                         f"N·D < 2^31, got N={n}, D={d}")
+    check_kernel_shape(n, d, g.dtype)
     out = torch.empty((plan.num_rows, d), dtype=g.dtype, device=g.device)
-    args = plan.kernel_args(d)
-    vec, _ = pack_shape(d, 4, g.data_ptr(), out.data_ptr())
-    err = _kernel()(g.device.index, ctypes.addressof(args), g.data_ptr(),
-                    out.data_ptr(), d, vec,
-                    torch._C._cuda_getCurrentRawStream(g.device.index))
+    if d == 0:
+        return out
+    args = plan.kernel_args(d, g.dtype)
+    vec, _ = pack_shape(d, g.element_size(), g.data_ptr(), out.data_ptr(),
+                        plan.scratch.data_ptr())
+    err = _kernel(g.dtype)(g.device.index, ctypes.addressof(args),
+                           g.data_ptr(), out.data_ptr(), d, vec,
+                           torch._C._cuda_getCurrentRawStream(
+                               g.device.index))
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -224,9 +244,13 @@ class GatherRows:
     ``window_rows`` and ``tile_rows`` for the tiles of ``window ·
     threads`` entries, and the scratch of the rows that cross tiles:
     ``flags`` (int32, one a tile) and ``counter`` (int32 [1]), zeroed and
-    left zeroed by every launch, and ``carry`` (f32, D a tile, allocated
-    by the first backward on a card of that D).  ``name`` labels its
-    backward in profiler timelines (``<name>.backward``)."""
+    left zeroed by every launch, and ``scratch`` (2 · tiles · D elements
+    in the cotangent's type, allocated by the first backward on a card of
+    that D and type): its first half holds the piece each tile publishes
+    (its carry), the second half the piece of the row that ends in it
+    where that piece is too wide for shared memory (csrc/segment_sum.cu:
+    more than 8 KB).  ``name`` labels its backward in profiler timelines
+    (``<name>.backward``)."""
     idx: torch.Tensor
     num_rows: int
     perm: torch.Tensor
@@ -238,7 +262,7 @@ class GatherRows:
     window: int = WINDOW
     threads: int = THREADS
     name: str = "gather_rows"
-    carry: Optional[torch.Tensor] = field(default=None, repr=False)
+    scratch: Optional[torch.Tensor] = field(default=None, repr=False)
     _args: Optional[_SegmentPlan] = field(default=None, repr=False)
 
     @classmethod
@@ -246,8 +270,9 @@ class GatherRows:
               threads: int = THREADS,
               name: str = "gather_rows") -> "GatherRows":
         """Plan the gather of ``idx`` (any integer array or tensor, read
-        flat) into ``num_rows`` rows, built once on the host and uploaded
-        to ``device``."""
+        flat) into ``num_rows`` rows, built once: the stable sort of the
+        index on ``device`` (``torch.sort``, the permutation of numpy's
+        stable argsort), the offsets and the tile layout on the host."""
         if torch.is_tensor(idx):
             idx = idx.detach().cpu().numpy()
         idx = np.asarray(idx).reshape(-1).astype(np.int64)
@@ -259,15 +284,16 @@ class GatherRows:
         if idx.size >= 2 ** 31:
             raise ValueError(f"{idx.size} entries: the plan indexes them "
                              "in int32")
-        order = np.argsort(idx, kind="stable")
+        device = as_device(device)
+        idx_t = torch.from_numpy(idx).to(device)
+        order = torch.sort(idx_t, stable=True)[1].to(torch.int32)
         offsets = np.concatenate(
             [[0], np.cumsum(np.bincount(idx, minlength=num_rows))])
         tiles = tile_layout(offsets, window, threads)
-        device = as_device(device)
         up = lambda a: torch.from_numpy(
             np.ascontiguousarray(a, np.int32)).to(device)
-        return cls(idx=torch.from_numpy(idx).to(device), num_rows=num_rows,
-                   perm=up(order), offsets=up(offsets),
+        return cls(idx=idx_t, num_rows=num_rows, perm=order,
+                   offsets=up(offsets),
                    window_rows=up(tiles["window_rows"]),
                    tile_rows=up(tiles["tile_rows"]),
                    flags=torch.zeros(len(tiles["tile_rows"]) - 1,
@@ -279,18 +305,21 @@ class GatherRows:
     def tiles(self) -> int:
         return self.flags.numel()
 
-    def kernel_args(self, d: int) -> _SegmentPlan:
-        """The kernel's plan struct for cotangents of width ``d``, made
-        once (and again when a wider ``d`` needs a larger carry)."""
-        if self.carry is None or self.carry.numel() < self.tiles * d:
-            self.carry = torch.empty(self.tiles * d, dtype=torch.float32,
-                                     device=self.perm.device)
+    def kernel_args(self, d: int,
+                    dtype: torch.dtype = torch.float32) -> _SegmentPlan:
+        """The kernel's plan struct for cotangents of width ``d`` and
+        type ``dtype``, made once (and again when a wider ``d`` or
+        another type needs another scratch)."""
+        if (self.scratch is None or self.scratch.dtype != dtype
+                or self.scratch.numel() < 2 * self.tiles * d):
+            self.scratch = torch.empty(2 * self.tiles * d, dtype=dtype,
+                                       device=self.perm.device)
             self._args = None
         if self._args is None:
             self._args = _SegmentPlan(
                 self.perm.data_ptr(), self.offsets.data_ptr(),
                 self.window_rows.data_ptr(), self.tile_rows.data_ptr(),
-                self.carry.data_ptr(), self.flags.data_ptr(),
+                self.scratch.data_ptr(), self.flags.data_ptr(),
                 self.counter.data_ptr(), self.perm.numel(), self.num_rows,
                 self.window, self.threads, self.tiles)
         return self._args
@@ -310,8 +339,8 @@ class GatherRows:
 
     def backward(self, g: torch.Tensor) -> torch.Tensor:
         """``grad_x`` [num_rows, D] of the cotangent ``g`` [N, D]: one
-        ``segment_sum`` launch on a CUDA tensor, ``segment_sum_plain`` on
-        a CPU tensor."""
+        ``segment_sum`` launch on a CUDA tensor (none at D = 0),
+        ``segment_sum_plain`` on a CPU tensor."""
         with annotate(f"{self.name}.backward", g.device):
             return segment_sum(g, self)
 
@@ -330,7 +359,9 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        rows = g.reshape(g.shape[0], -1).contiguous()
+        # The width from the saved shape, not -1: an empty index (or a
+        # row of no elements) leaves -1 nothing to infer from.
+        rows = g.reshape(g.shape[0], math.prod(ctx.shape[1:])).contiguous()
         return ctx.plan.backward(rows).reshape(ctx.shape), None
 
 

@@ -11,7 +11,9 @@ at rtol 1e-4 / atol 1e-6 and exactly on integer-valued cotangents; the
 plain segment sum against a float64 ``np.add.at`` and A1's plain CSR sum
 at rtol 1e-5 / atol 1e-4 (f32 sums of up to ~900 standard normal terms,
 whose rounding in any order is ~sqrt(n)·2^-24·max|partial sum|, and
-whose totals may cancel to near 0), exactly on integers; fit histories
+whose totals may cancel to near 0), exactly on integers; in f64 the
+plan's backward against JAX's (x64) and ``np.add.at`` at rtol 1e-12 /
+atol 1e-12 (~100 ulp of sums of up to 10^4 terms); fit histories
 at rtol 1e-3 / atol 1e-5 (tests/test_torch_models.py's); distributed
 steps at a loss within 1e-5 and parameters within rtol 1e-4 / atol 1e-5
 (tests/test_torch_parallel.py's).  JAX is imported inside the tests that
@@ -25,8 +27,9 @@ import torch
 from gnnpe_tpu_torch.models import gnn, train
 from gnnpe_tpu_torch.ops import gather
 from gnnpe_tpu_torch.ops.gather import (THREADS, WINDOW, GatherRows,
-                                        PlanCache, segment_sum,
-                                        segment_sum_plain, tile_layout)
+                                        PlanCache, check_kernel_shape,
+                                        segment_sum, segment_sum_plain,
+                                        tile_layout)
 from gnnpe_tpu_torch.ops.spmm import neighbor_sum_plain
 from gnnpe_tpu_torch.parallel.launch import run_ranks
 
@@ -111,6 +114,113 @@ def test_plan_backward_exact_on_integers(window, threads):
     np.add.at(want, idx, g)
     plan = GatherRows.build(idx, rows, "cpu", window, threads)
     assert np.array_equal(plan.backward(torch.from_numpy(g)).numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(7, 3), (7, 2, 3)])
+def test_empty_index_backward_matches_jax(shape):
+    """A gather with an empty index: forward of shape [0, ...] and a
+    backward of zeros, equal to ``jax.vjp`` of ``jnp.take``."""
+    import jax
+    import jax.numpy as jnp
+    idx = np.zeros(0, np.int64)
+    x = np.random.RandomState(0).randn(*shape).astype(np.float32)
+    want, vjp = jax.vjp(lambda t: jnp.take(t, jnp.asarray(idx), axis=0),
+                        jnp.asarray(x))
+    (want_grad,) = vjp(jnp.zeros(want.shape, jnp.float32))
+    plan = GatherRows.build(idx, shape[0], "cpu")
+    xt = torch.from_numpy(x).requires_grad_()
+    out = plan(xt)
+    assert out.shape == want.shape == (0,) + shape[1:]
+    out.sum().backward()
+    assert xt.grad.shape == shape
+    assert np.array_equal(xt.grad.numpy(), np.asarray(want_grad))
+    assert not xt.grad.any()
+
+
+def test_plan_backward_f64_matches_jax_x64():
+    """The plan in f64: forward equal to ``jnp.take`` and backward within
+    rtol 1e-12 of ``jax.vjp`` of it under x64 and of a float64
+    ``np.add.at``, on a skewed index of [R, L, D] rows."""
+    import jax
+    import jax.numpy as jnp
+    rows, d = 300, 3
+    idx = skewed_index(11, rows, 4, 32)
+    rng = np.random.RandomState(12)
+    x = rng.randn(rows, 2, d)
+    g = rng.randn(len(idx), 2, d)
+    with jax.enable_x64(True):
+        want, vjp = jax.vjp(lambda t: jnp.take(t, jnp.asarray(idx), axis=0),
+                            jnp.asarray(x))
+        (want_grad,) = vjp(jnp.asarray(g))
+        want, want_grad = np.asarray(want), np.asarray(want_grad)
+    assert want_grad.dtype == np.float64
+    plan = GatherRows.build(idx, rows, "cpu", 4, 32)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = plan(xt)
+    out.backward(torch.from_numpy(g))
+    assert xt.grad.dtype == torch.float64
+    assert np.array_equal(out.detach().numpy(), want)
+    np.testing.assert_allclose(xt.grad.numpy(), want_grad, rtol=1e-12,
+                               atol=1e-12)
+    added = np.zeros_like(x)
+    np.add.at(added, idx, g)
+    np.testing.assert_allclose(xt.grad.numpy(), added, rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_segment_sum_plain_wide_rows():
+    """D = 4,100 (past the kernel's earlier cap of 4,096) on an index
+    whose hot row spans tiles: ``segment_sum_plain`` against a float64
+    ``np.add.at`` within rtol 1e-5 / atol 1e-4, and exactly on integer
+    cotangents; ``segment_sum`` on the CPU is the plain version."""
+    window, threads, rows, d = 4, 32, 40, 4100
+    rng = np.random.RandomState(5)
+    idx = rng.permutation(np.concatenate([np.full(300, 7),
+                                          rng.randint(0, rows, 200)]))
+    plan = GatherRows.build(idx, rows, "cpu", window, threads)
+    for g in (rng.randn(len(idx), d).astype(np.float32),
+              rng.randint(-8, 9, (len(idx), d)).astype(np.float32)):
+        gt = torch.from_numpy(g)
+        got = segment_sum_plain(gt, plan.perm, plan.offsets, window,
+                                threads)
+        want = np.zeros((rows, d))
+        np.add.at(want, idx, g.astype(np.float64))
+        if np.array_equal(g, np.round(g)):
+            assert np.array_equal(got.numpy(), want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                       atol=1e-4)
+        assert torch.equal(segment_sum(gt, plan), got)
+
+
+def test_kernel_acceptance_rule():
+    """What the wrapper hands a CUDA tensor's kernel (``check_kernel_shape``
+    passes): f32 and f64, any D (0, 2, past 4,096), N·D past 2^31, an
+    empty index; what still raises: integer and half types, N >= 2^31;
+    and a device that is neither the CPU nor CUDA (no plain fallback)."""
+    for dtype in (torch.float32, torch.float64):
+        for n, d in ((0, 2), (5, 0), (1_000, 2), (1_000, 4_100),
+                     (2 ** 24 + 1_000, 128), (182_339_307, 12),
+                     (2 ** 31 - 1, 1)):
+            check_kernel_shape(n, d, dtype)
+    assert (2 ** 24 + 1_000) * 128 >= 2 ** 31
+    for dtype in (torch.int32, torch.int64, torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError, match="float32 or float64"):
+            check_kernel_shape(1_000, 2, dtype)
+    for n in (2 ** 31, 2 ** 33):
+        with pytest.raises(ValueError, match="2\\^31"):
+            check_kernel_shape(n, 2, torch.float32)
+    idx = np.zeros(0, np.int64)
+    meta = GatherRows.build(idx, 3, "meta")
+    with pytest.raises(ValueError, match="no segment_sum kernel"):
+        meta.backward(torch.zeros(0, 2, device="meta", dtype=torch.float64))
+    # On the CPU the same inputs take the plain version.
+    cpu = GatherRows.build(idx, 3, "cpu")
+    for dtype in (torch.float32, torch.float64):
+        for d in (0, 2):
+            out = segment_sum(torch.zeros(0, d, dtype=dtype), cpu)
+            assert out.shape == (3, d) and out.dtype == dtype
+            assert not out.any()
 
 
 def _segment_case(case, window, threads):
@@ -234,7 +344,9 @@ def test_tile_layout_fields():
 def test_kernel_args_struct():
     """The ctypes mirror of csrc/segment_sum.cu's SegmentPlan: 7
     pointers, the entry count and 4 ints (80 bytes, no padding), filled
-    from the plan; a wider D takes a larger carry and a new struct."""
+    from the plan; its carry is the plan's scratch (a carry and an own
+    piece of D elements a tile); a wider D or another type takes a new
+    scratch and a new struct."""
     import ctypes
     plan = GatherRows.build(skewed_index(4), 300, "cpu", 4, 64)
     args = plan.kernel_args(2)
@@ -242,12 +354,16 @@ def test_kernel_args_struct():
     assert (args.n, args.rows, args.window, args.threads, args.tiles) == (
         plan.perm.numel(), 300, 4, 64, plan.tiles)
     assert args.perm == plan.perm.data_ptr()
-    assert args.carry == plan.carry.data_ptr()
-    assert plan.carry.numel() == plan.tiles * 2
+    assert args.carry == plan.scratch.data_ptr()
+    assert plan.scratch.numel() == 2 * plan.tiles * 2
+    assert plan.scratch.dtype == torch.float32
     assert plan.kernel_args(1) is args
     wide = plan.kernel_args(5)
-    assert wide is not args and plan.carry.numel() == plan.tiles * 5
-    assert wide.carry == plan.carry.data_ptr()
+    assert wide is not args and plan.scratch.numel() == 2 * plan.tiles * 5
+    assert wide.carry == plan.scratch.data_ptr()
+    f64 = plan.kernel_args(5, torch.float64)
+    assert f64 is not wide and plan.scratch.dtype == torch.float64
+    assert f64.carry == plan.scratch.data_ptr()
 
 
 def test_plan_layout_and_checks():
@@ -270,7 +386,7 @@ def test_plan_layout_and_checks():
         WINDOW * THREADS))
     assert plan.flags.dtype == plan.counter.dtype == torch.int32
     assert not plan.flags.any() and plan.counter.tolist() == [0]
-    assert plan.carry is None
+    assert plan.scratch is None
     assert plan.launches_per_backward == 1
     with pytest.raises(ValueError, match="outside"):
         GatherRows.build(np.array([0, 300]), 300, "cpu")
@@ -403,19 +519,20 @@ def test_distributed_step_with_plans_equals_single_device(tmp_path, n):
 # ---- the card --------------------------------------------------------------
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("d", [1, 2, 5, 16])
 @pytest.mark.parametrize("window,threads", [(WINDOW, THREADS), (4, 32)])
-def test_backward_bit_equal_on_card(cuda_device, d, window, threads):
+def test_backward_bit_equal_on_card(cuda_device, d, window, threads, dtype):
     """One kernel launch a backward, bit-equal to ``segment_sum_plain``
     run on the card and bit-identical over 3 calls and 2 replays of a
-    CUDA graph; the forward equal to ``x[idx]``; within rtol 1e-5 of
-    ``index_add_``."""
+    CUDA graph, in f32 and f64; the forward equal to ``x[idx]``; within
+    rtol 1e-5 of ``index_add_``."""
     idx = skewed_index(d, 300, window, threads)
     plan = GatherRows.build(idx, 300, cuda_device, window, threads)
     rng = np.random.RandomState(d)
-    x = torch.from_numpy(rng.rand(300, d).astype(np.float32)).to(
+    x = torch.from_numpy(rng.rand(300, d).astype(dtype)).to(
         cuda_device).requires_grad_()
-    g = torch.from_numpy(rng.rand(len(idx), d).astype(np.float32)).to(
+    g = torch.from_numpy(rng.rand(len(idx), d).astype(dtype)).to(
         cuda_device)
     out = plan(x)
     assert torch.equal(out.detach(), x.detach()[plan.idx])
@@ -450,3 +567,73 @@ def test_segment_cases_bit_equal_on_card(cuda_device, case):
         g = torch.from_numpy(np.random.RandomState(d).randn(
             len(idx), d).astype(np.float32)).to(cuda_device)
         assert torch.equal(segment_sum(g, plan), plan.backward_plain(g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float64, 1), (torch.float64, 2),
+                                     (torch.float64, 5),
+                                     (torch.float32, 4_100),
+                                     (torch.float64, 4_100)])
+@pytest.mark.parametrize("case", ["one_row_many_tiles",
+                                  "window_and_tile_edges", "empty_rows"])
+def test_wide_types_bit_equal_on_card(cuda_device, case, dtype, d):
+    """f64 and D = 4,100 (past the earlier cap) on the edge cases: one
+    launch, bit-equal to ``segment_sum_plain`` on the card and
+    bit-identical over 2 calls."""
+    idx, rows = _segment_case(case, 4, 32)
+    plan = GatherRows.build(np.random.RandomState(1).permutation(idx), rows,
+                            cuda_device, 4, 32)
+    gen = torch.Generator(cuda_device).manual_seed(d)
+    g = torch.randn((len(idx), d), generator=gen, dtype=dtype,
+                    device=cuda_device)
+    before = gather.LAUNCHES
+    got = segment_sum(g, plan)
+    assert gather.LAUNCHES - before == 1
+    assert got.dtype == dtype and got.shape == (rows, d)
+    assert torch.equal(got, plan.backward_plain(g))
+    assert torch.equal(got, segment_sum(g, plan))
+    assert not plan.flags.any() and plan.counter.item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_empty_index_on_card(cuda_device, dtype):
+    """An empty index: the backward through autograd ([R, D] and
+    [R, L, D]) is one launch and all zeros; D = 0 returns [R, 0] with no
+    launch."""
+    plan = GatherRows.build(np.zeros(0, np.int64), 9, cuda_device)
+    for shape in ((9, 2), (9, 3, 2)):
+        x = torch.randn(shape, dtype=dtype, device=cuda_device,
+                        requires_grad=True)
+        before = gather.LAUNCHES
+        plan(x).sum().backward()
+        assert gather.LAUNCHES - before == 1
+        assert x.grad.shape == shape and not x.grad.any()
+    before = gather.LAUNCHES
+    out = segment_sum(torch.zeros((0, 0), dtype=dtype, device=cuda_device),
+                      plan)
+    assert out.shape == (9, 0) and gather.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_past_2_31_elements_on_card(cuda_device):
+    """N·D past 2^31: 2^24 + 1,000 entries at f32 D = 128 (8.6 GB of
+    cotangent) into 100,000 rows, one of them named 10^5 times; one
+    launch, bit-equal to ``segment_sum_plain`` on the card column slice
+    by column slice (columns are independent, so a slice keeps the
+    order)."""
+    n, rows, d = 2 ** 24 + 1_000, 100_000, 128
+    assert n * d >= 2 ** 31
+    rng = np.random.RandomState(2)
+    idx = rng.randint(0, rows, n)
+    idx[rng.choice(n, 100_000, replace=False)] = 17
+    plan = GatherRows.build(idx, rows, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    g = torch.rand((n, d), generator=gen, device=cuda_device)
+    before = gather.LAUNCHES
+    got = segment_sum(g, plan)
+    assert gather.LAUNCHES - before == 1
+    for c in range(0, d, 32):
+        want = segment_sum_plain(g[:, c:c + 32].contiguous(), plan.perm,
+                                 plan.offsets, plan.window, plan.threads)
+        assert torch.equal(got[:, c:c + 32], want)

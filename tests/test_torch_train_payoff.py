@@ -96,3 +96,61 @@ def test_payoff_cli_on_cpu_writes_no_file(tmp_path, monkeypatch, capsys):
 def test_payoff_cli_needs_device():
     with pytest.raises(SystemExit):
         train_payoff.main(["--dataset", "yeast"])
+
+
+def test_streamed_pe_payoff_matches_jax():
+    """``run(variant="pe", force_streamed=True)`` on yeast: both rows
+    served by the streamed index (``mode`` "streamed", ``chunks_mean``
+    recorded), trained answers equal to the fixed ones (run asserts it);
+    the fixed embedder's answers and candidates on the held-out queries,
+    and the row's ``cand_sum_mean``, equal to gnnpe_tpu's PE engine on
+    the same graph and queries (candidates do not depend on the index
+    layout, so its host packed index is the oracle)."""
+    from gnnpe_tpu.config import PEConfig
+    from gnnpe_tpu.engine import PEEngine as RefPEEngine
+    from gnnpe_tpu.io.datasets import load_dataset
+    from gnnpe_tpu_torch.index.device_packed import StreamedPESearch
+    pay = train_payoff.run("yeast", queries=3, query_size=5, steps=3,
+                           variant="pe", device="cpu", force_streamed=True)
+    assert isinstance(pay.engine.searcher, StreamedPESearch)
+    fixed_row, trained_row = pay.rows
+    for row in pay.rows:
+        assert row["mode"] == "streamed" and row["answers_ok"]
+        assert row["chunks_mean"] >= 1.0
+    assert [r.answer_count for r in pay.trained] == [
+        r.answer_count for r in pay.fixed]
+    assert all("uploaded_bytes" in st and "cache_misses" in st
+               for st in pay.fixed_stats + pay.trained_stats)
+    g = load_dataset("yeast", seed=0)
+    ref = RefPEEngine(PEConfig.from_cli(l=2, e=2, p=5, n=100_000),
+                      g).offline().build_index()
+    qs = [sample_query(g, 5, tree=True, seed=10_000 + i) for i in range(3)]
+    want = [ref.online(q, engine="native") for q in qs]
+    for q, mine in zip(qs, pay.queries):
+        assert np.array_equal(q.neighbors, mine.neighbors)
+    assert [r.answer_count for r in pay.fixed] == [
+        w.answer_count for w in want]
+    for got, w in zip(pay.fixed, want):
+        assert len(got.candidates) == len(w.candidates)
+        for a, b in zip(got.candidates, w.candidates):
+            assert np.array_equal(a, b)
+    assert fixed_row["cand_sum_mean"] == np.mean(
+        [sum(map(len, w.candidates)) for w in want])
+
+
+def test_payoff_cli_force_streamed(capsys):
+    """``--variant pe --force-streamed``: both printed rows carry
+    ``mode`` "streamed" and ``chunks_mean``; PGE rows carry no mode."""
+    train_payoff.main(["--dataset", "yeast", "--device", "cpu",
+                       "--steps", "2", "--queries", "1", "--query-size",
+                       "5", "--variant", "pe", "--force-streamed"])
+    rows = [json.loads(line) for line in
+            capsys.readouterr().out.strip().splitlines()]
+    assert [r["mode"] for r in rows] == ["streamed", "streamed"]
+    assert all("chunks_mean" in r for r in rows)
+    train_payoff.main(["--dataset", "yeast", "--device", "cpu",
+                       "--steps", "2", "--queries", "1", "--query-size",
+                       "5", "--force-streamed"])
+    rows = [json.loads(line) for line in
+            capsys.readouterr().out.strip().splitlines()]
+    assert all("mode" not in r and "chunks_mean" in r for r in rows)
