@@ -2308,9 +2308,10 @@ def readout_rows(g, paths, device, record) -> dict:
         w1, k1, k2, w2 = (cuda_ms(lambda: walk.apply(cot), 50),
                           cuda_ms(kern, 50), cuda_ms(kern, 50),
                           cuda_ms(lambda: walk.apply(cot), 50))
+        state = plan.launch_state(2)
         rows[name].update(
-            entries=n, rows=r, tiles=plan.tiles, window=plan.window,
-            threads=plan.threads, calls_bit_identical=3,
+            entries=n, rows=r, tiles=state.tiles, lanes=state.lanes,
+            window=plan.window, threads=plan.threads, calls_bit_identical=3,
             index_put_accumulate_ms=cuda_ms(put, 5),
             a2_walk=dict(launches=walk.launches_per_apply,
                          ms=(w1 + w2) / 2, turns_ms=[w1, k1, k2, w2],
@@ -2318,7 +2319,7 @@ def readout_rows(g, paths, device, record) -> dict:
                          device_ms=graph_ms(lambda: walk.apply(cot)),
                          levels=[list(t.shape) for t in walk.tables]))
         _print_turns(f"segment_sum readout {name} (1 launch, "
-                     f"{plan.tiles} tiles of {plan.window} x "
+                     f"{state.tiles} tiles of {plan.window} x "
                      f"{plan.threads})", rows[name])
         # The same plan at f64 D=2 (the kernel's second type).
         cot64 = cot.double()
@@ -2339,7 +2340,8 @@ def readout_rows(g, paths, device, record) -> dict:
               f"readout {plan.name} f64: index_add_ leaves the kernel")
         name64 = name.replace("_f32_", "_f64_")
         rows[name64] = dict(
-            max_abs_err=err64, entries=n, rows=r, tiles=plan.tiles,
+            max_abs_err=err64, entries=n, rows=r,
+            tiles=plan.launch_state(2, torch.float64).tiles,
             calls_bit_identical=2, **_measure(
                 lambda: plan.backward_plain(cot64),
                 lambda: plan.backward(cot64), add64,
@@ -2372,10 +2374,10 @@ def readout_limits(g, full_paths, device, record) -> dict:
     (a) the full dblp path readout (``readout_plans`` over every path,
     before the trainer's subsample) at f32 D=12, N·D past 2^31: one
     launch, bit-equal to ``segment_sum_plain`` run on the card column
-    slice by column slice (columns are independent, so a slice keeps the
-    order), bit-identical over 2 calls, within rtol 1e-4 of
-    ``index_add_``, timed by events and on the card alone, its peak
-    device memory printed; (c) a small index at D = 4,100, f32 and f64,
+    slice by column slice (columns are independent, so a slice told the
+    D=12 lanes keeps the order), bit-identical over 2 calls, within rtol
+    1e-4 of ``index_add_``, timed by events and on the card alone, its
+    peak device memory printed; (c) a small index at D = 4,100, f32 and f64,
     bit-equal; (d) an empty index through autograd: one launch, all rows
     zero.  Returns (a)'s row."""
     import torch
@@ -2406,8 +2408,10 @@ def readout_limits(g, full_paths, device, record) -> dict:
           "full readout: segment_sum differs between calls")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    state = plan.launch_state(d)
     start.record()
-    plain = torch.cat([plan.backward_plain(cot[:, c:c + FULL_READOUT_SLICE])
+    plain = torch.cat([plan.backward_plain(cot[:, c:c + FULL_READOUT_SLICE],
+                                           state.lanes)
                        for c in range(0, d, FULL_READOUT_SLICE)], dim=1)
     end.record()
     torch.cuda.synchronize()
@@ -2431,15 +2435,16 @@ def readout_limits(g, full_paths, device, record) -> dict:
                bound_ms=max(by_bytes, by_ops),
                bound_by="bytes" if by_bytes >= by_ops else "operations",
                bytes_moved=n * d * 4 + n * 4 + r * d * 4, max_abs_err=err,
-               entries=n, rows=r, d=d, tiles=plan.tiles, build_s=build_s,
+               entries=n, rows=r, d=d, tiles=state.tiles,
+               lanes=state.lanes, build_s=build_s,
                cotangent_bytes=n * d * 4, kernel_peak_bytes=kernel_peak,
                calls_bit_identical=2)
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     row["device_share_of_bound"] = row["bound_ms"] / row["device_ms"]
     rec["full_paths_f32_d12"] = row
     print(f"segment_sum full path readout: {n} entries into {r} rows at f32 "
-          f"D={d} (N·D = {n * d}, cotangent {n * d * 4} B), {plan.tiles} "
-          f"tiles, plan built in {build_s:.2f} s: 1 launch, bit-equal to "
+          f"D={d} (N·D = {n * d}, cotangent {n * d * 4} B), {state.tiles} "
+          f"tiles of {state.lanes} lanes an entry, plan built in {build_s:.2f} s: 1 launch, bit-equal to "
           f"plain (in slices of {FULL_READOUT_SLICE} columns, "
           f"{plain_ms:.2f} ms), bit-identical over 2 calls, within rtol 1e-4 "
           f"of index_add_; kernel {row['ms']:.4f} ms by events ("
@@ -2467,10 +2472,11 @@ def readout_limits(g, full_paths, device, record) -> dict:
               and torch.equal(got, wide.backward(g_w)),
               f"D={WIDE_READOUT_D} {dtype}: segment_sum differs from "
               "segment_sum_plain or between calls")
+    tiles = wide.launch_state(WIDE_READOUT_D).tiles
     rec["wide"] = dict(d=WIDE_READOUT_D, entries=len(idx), rows=300,
-                       tiles=wide.tiles, dtypes=["float32", "float64"])
+                       tiles=tiles, dtypes=["float32", "float64"])
     print(f"segment_sum at D={WIDE_READOUT_D} (f32, f64; {len(idx)} entries, "
-          f"{wide.tiles} tiles): 1 launch each, bit-equal to plain and over "
+          f"{tiles} tiles): 1 launch each, bit-equal to plain and over "
           "2 calls")
 
     # (d) An empty index, through autograd.

@@ -1,6 +1,7 @@
 """Time the two gather-sum kernels (A1 ``ops.spmm.neighbor_sum``, A2
-``ops.ell.BinnedEllDevice.apply_perm``) on the dblp-rung graph, on one
-CUDA card, and compare two checkouts of the port in turns.
+``ops.ell.BinnedEllDevice.apply_perm``) and the readout backward (R,
+``ops.gather.segment_sum``) on the dblp-rung graph, on one CUDA card,
+and compare two checkouts of the port in turns.
 
     python -m gnnpe_tpu_torch.kernels.compare_gather [--parent DIR] [--step]
     python -m gnnpe_tpu_torch.kernels.compare_gather --sweep
@@ -10,8 +11,11 @@ With it, DIR (another checkout of the repository, for example an
 unpacked ``git archive`` of an earlier commit) is measured in turns
 with this one: parent, this, this, parent.  Each turn is a process of
 its own (``--measure``, with ``PYTHONPATH`` naming the checkout), so
-each builds its own kernels; the four shapes are A1 f64 D=2 and f32
-D=128, A2 f32 D=2 and D=128.  Per shape a turn reports
+each builds its own kernels; the shapes are A1 f64 D=2 and f32 D=128,
+A2 f32 D=2 and D=128, and R's (``measure_readout``): the label lookup
+and the path readout at f32 D=2, the path readout at f64 D=2 and a
+quarter of the full dblp path readout at f32 D=12.  Per shape a turn
+reports
 
   ``ms``        CUDA events round a loop of calls (host path included),
   ``device_ms`` the same calls replayed from a CUDA graph, which leaves
@@ -20,8 +24,10 @@ D=128, A2 f32 D=2 and D=128.  Per shape a turn reports
                 between them, so the call finds L2 flushed,
 
 and A1 on the graph's rows in degree-sorted order, A1 with the long-row
-queue at several thresholds where the checkout has it, and A2's launches
-per apply.  With ``--step`` a turn times the training step instead:
+queue at several thresholds where the checkout has it, A2's launches
+per apply, and for R ``index_add_ms`` (the library call by events) and
+at D=2 ``host_us`` (the host's µs a call, beside those of
+``segment_sum`` without its profiler range and of ``torch.empty``).  With ``--step`` a turn times the training step instead:
 ``frontends/train_payoff.run`` on dblp with 8 queries (300 binned
 steps), its ``step_ms`` and ``train_s`` (host clock, the card
 synchronised at both ends of the step loop) and its losses, after the
@@ -156,6 +162,88 @@ def measure() -> dict:
     before = ell.LAUNCHES
     lay.apply_perm(h)
     out["a2_launches_per_apply"] = ell.LAUNCHES - before
+    out.update(measure_readout(g, device))
+    return out
+
+
+# Every READOUT_CUT-th path of the full dblp path set for the D=12 shape
+# (a quarter: 45.6 M entries, a 2.19 GB cotangent), and the calls timed
+# for a wrapper's host cost.
+READOUT_CUT = 4
+HOST_CALLS = 2000
+
+
+def _host_us(fn, calls=HOST_CALLS):
+    """Host µs a call of ``fn`` over ``calls`` calls issued back to back,
+    the card synchronised at both ends (the host's cost where a call
+    takes less on the card)."""
+    import time
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def measure_readout(g, device) -> dict:
+    """Kernel R (``ops/gather.py:segment_sum``, csrc/segment_sum.cu) at
+    the readout's shapes: the trainer's label lookup and path readout
+    (``train_payoff``'s 500,000 paths at seed 0) at f32 D=2, the path
+    readout at f64 D=2, and every ``READOUT_CUT``-th of the full dblp
+    paths at f32 D=12.  The paths are enumerated on the card
+    (``enumerate_dedup_device``: ``enumerate_paths``' rows in its order)
+    and subsampled as ``sample_train_paths`` does.  Each backward is held
+    bit-equal to the checkout's ``backward_plain`` and timed as the A1/A2
+    shapes, with ``index_add_`` by events beside it; at D=2 also the
+    host's µs a call of the backward, of ``segment_sum`` without its
+    profiler range and of the output's ``torch.empty``."""
+    import torch
+    from gnnpe_tpu_torch.frontends.train_payoff import MAX_TRAIN_PATHS
+    from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
+    from gnnpe_tpu_torch.ops.gather import GatherRows, segment_sum
+    from gnnpe_tpu_torch.paths.device_enumerate import enumerate_dedup_device
+    paths = enumerate_dedup_device(g, degree_sorted_nodes(g), 3, device)
+    paths = paths.cpu().numpy()
+    sel = np.random.RandomState(3).choice(len(paths), MAX_TRAIN_PATHS,
+                                          replace=False)
+    gathers = {
+        "r_labels_f32_d2": (g.labels, g.labels_count, torch.float32, 2),
+        "r_paths_f32_d2": (paths[np.sort(sel)], g.num_vertices,
+                           torch.float32, 2),
+        "r_paths_f64_d2": (paths[np.sort(sel)], g.num_vertices,
+                           torch.float64, 2),
+        "r_paths_cut_f32_d12": (paths[::READOUT_CUT], g.num_vertices,
+                                torch.float32, 12)}
+    del paths
+    out = {}
+    gen = torch.Generator(device).manual_seed(0)
+    for name, (idx, rows, dtype, d) in gathers.items():
+        plan = GatherRows.build(idx, rows, device, name=name)
+        n = plan.idx.numel()
+        cot = torch.rand((n, d), generator=gen, dtype=dtype, device=device)
+        got = plan.backward(cot)
+        if not (torch.equal(got, plan.backward_plain(cot))
+                and torch.equal(got, plan.backward(cot))):
+            raise SystemExit(f"compare_gather: {name} differs from the "
+                             "plain version or between calls")
+        del got
+        kern = lambda: plan.backward(cot)
+        add = lambda: torch.zeros((rows, d), dtype=dtype,
+                                  device=device).index_add_(0, plan.idx, cot)
+        iters = 200 if d == 2 else 5
+        out[name] = dict(entries=n, rows=rows, **_times(kern, iters),
+                         index_add_ms=_events_ms(add, iters))
+        if d == 2:
+            out[name].update(
+                host_us=_host_us(kern),
+                segment_sum_host_us=_host_us(lambda: segment_sum(cot, plan)),
+                empty_host_us=_host_us(lambda: torch.empty(
+                    (rows, d), dtype=dtype, device=device)))
+        del plan, cot
+        torch.cuda.empty_cache()
     return out
 
 
@@ -273,11 +361,13 @@ def main() -> int:
         print(f"turn {len(turns)}: " + json.dumps(turns[-1]))
     if args.parent:
         keys = ("step_ms", "train_s") if args.step else (
-            "ms", "device_ms", "cold_ms")
+            "ms", "device_ms", "cold_ms", "index_add_ms", "host_us")
         shapes = [k for k, v in turns[0].items()
                   if isinstance(v, dict) and keys[0] in v]
         for shape in shapes:
             for key in keys:
+                if key not in turns[0][shape]:
+                    continue
                 old = (turns[0][shape][key] + turns[3][shape][key]) / 2
                 new = (turns[1][shape][key] + turns[2][shape][key]) / 2
                 print(f"{shape} {key}: parent {old:.5f}, this {new:.5f}, "

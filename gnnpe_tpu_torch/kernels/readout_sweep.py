@@ -14,9 +14,13 @@ itself over 3 calls, then timed: ``ms`` by CUDA events round a loop of
 calls (host path included), ``device_ms`` replayed from a CUDA graph (the
 card alone).  Beside them, once per gather, ``index_add_`` and torch's
 own backward of ``x[idx]`` (``index_put_`` with ``accumulate=True``) by
-events, and the earlier route of the same call, kernel A2's walk of the
+events, the earlier route of the same call, kernel A2's walk of the
 transposed index as a uniform-width ELL (``build_ell(offsets, perm, 8,
-8, num_sources=N)``), by events and on the card.  One JSON row per
+8, num_sources=N)``), by events and on the card, and two yardsticks of
+the kernel on the card: the same gather over its index sorted (the same
+rows and row lengths, every gather in order: what the scattered gathers
+cost) and an empty index into one row (one block: the floor of a
+launch).  One JSON row per
 point; the last line names the points with the least summed ``ms`` of
 the two plans (what a step pays while it is bound by the host) and the
 least summed ``device_ms``.  All times are device times of this run's
@@ -53,9 +57,10 @@ def readout_indices(dataset: str, seed: int = 0):
 def _earlier(plan, g):
     """``index_add_``, ``index_put_`` (accumulate) and the A2 walk of
     ``plan``'s transposed index, timed; the walk within rtol 1e-4 of the
-    kernel."""
+    kernel; the kernel on the sorted index and on an empty one."""
     import torch
     from gnnpe_tpu_torch.ops.ell import build_ell
+    from gnnpe_tpu_torch.ops.gather import GatherRows
     idx, shape = plan.idx, (plan.num_rows, g.shape[1])
     put = lambda: torch.zeros(shape, device=g.device).index_put_(
         (idx,), g, accumulate=True)
@@ -67,7 +72,14 @@ def _earlier(plan, g):
                           atol=1e-4):
         raise SystemExit(f"readout_sweep: {plan.name}: the A2 walk leaves "
                          "the kernel")
-    return dict(index_put_accumulate_ms=_events_ms(put, 5),
+    in_order = GatherRows.build(torch.sort(idx)[0], plan.num_rows, g.device)
+    empty = GatherRows.build(np.zeros(0, np.int64), 1, g.device)
+    none = g[:0].contiguous()
+    return dict(sorted_index_device_ms=_graph_ms(
+                    lambda: in_order.backward(g)),
+                launch_floor_device_ms=_graph_ms(
+                    lambda: empty.backward(none)),
+                index_put_accumulate_ms=_events_ms(put, 5),
                 index_add_ms=_events_ms(add, 20),
                 a2_walk_launches=walk.launches_per_apply,
                 a2_walk_ms=_events_ms(lambda: walk.apply(g), 50),
@@ -109,7 +121,7 @@ def sweep(dataset: str) -> None:
                                      "segment_sum_plain")
                 row = dict(gather=name, window=window, threads=threads,
                            launches=launches // 3,
-                           tiles=plan.tile_rows.numel() - 1,
+                           tiles=plan.launch_state(2).tiles,
                            ms=_events_ms(lambda: plan.backward(g), 50),
                            device_ms=_graph_ms(lambda: plan.backward(g)))
                 total[0] += row["ms"]

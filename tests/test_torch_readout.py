@@ -29,7 +29,7 @@ from gnnpe_tpu_torch.ops import gather
 from gnnpe_tpu_torch.ops.gather import (THREADS, WINDOW, GatherRows,
                                         PlanCache, check_kernel_shape,
                                         segment_sum, segment_sum_plain,
-                                        tile_layout)
+                                        slot_shape, tile_layout)
 from gnnpe_tpu_torch.ops.spmm import neighbor_sum_plain
 from gnnpe_tpu_torch.parallel.launch import run_ranks
 
@@ -239,16 +239,41 @@ def _segment_case(case, window, threads):
     if case == "empty_rows":
         return rng.choice([3, 50, 51, 52, 400, 998], 5_000), 1_000
     if case == "n_below_threads":
-        return rng.randint(0, 40, threads - 5), 40
+        return rng.randint(0, 40, max(3, threads - 5)), 40
     if case == "one_row":
         return np.zeros(3 * tile + 1, np.int64), 1
     if case == "no_entries":
         return np.zeros(0, np.int64), 7
+    if case == "row_starts_in_last_slot":
+        # After window - 1 entries the next row starts in the window's
+        # last slot; rows of one entry there, and rows that start there
+        # and run on over several windows.
+        counts = np.tile([window - 1, 1, window - 1, window + 2,
+                          2 * window + 3, 1], 30)
+        return np.repeat(np.arange(len(counts)), counts), len(counts)
+    if case == "row_ends_on_warp_edge":
+        # Rows of a warp's entries at 1, 2, 4, 8 and 32 lanes an entry
+        # (32 / lanes slots of a window), one less and one more, so that
+        # rows end on and beside warp edges at every width.
+        counts = np.concatenate([[e, e - 1, 1, e + 1, e] for e in
+                                 (32 * window, 16 * window, 8 * window,
+                                  4 * window, window)] * 3)
+        return np.repeat(np.arange(len(counts)), counts), len(counts)
+    if case == "empty_row_runs":
+        # Non-empty rows with runs of 6 empty rows between them, 40 empty
+        # rows first and 50 last.
+        named = np.arange(40, 950, 7)
+        counts = rng.randint(1, 3 * window, len(named))
+        return np.repeat(named, counts), 1_000
+    if case == "n_is_one":
+        return np.array([3]), 5
     raise ValueError(case)
 
 
 SEGMENT_CASES = ["one_row_many_tiles", "window_and_tile_edges",
-                 "empty_rows", "n_below_threads", "one_row", "no_entries"]
+                 "empty_rows", "n_below_threads", "one_row", "no_entries",
+                 "row_starts_in_last_slot", "row_ends_on_warp_edge",
+                 "empty_row_runs", "n_is_one"]
 
 
 @pytest.mark.parametrize("case", SEGMENT_CASES)
@@ -284,11 +309,125 @@ def test_segment_sum_plain_against_oracles(case, d):
     assert (got.numpy()[counts == 0] == 0).all()
 
 
+def _order_by_hand(g, idx, rows, window, threads, lanes):
+    """The kernel's order written out thread by thread in plain Python
+    (csrc/segment_sum.cu), one row of D columns at a time: each slot's
+    runs (a slot of ``lanes`` lanes sums ``min(16, window · lanes)``
+    entries); the Kogge-Stone scan over a warp's slots; the warps' carries in
+    warp order; the first run of a slot closing its row; the pieces of a
+    row from earlier tiles summed into S slots, S = threads / lanes, then
+    a pairwise tree over all S slots, the tile's own piece last."""
+    n, d = g.shape
+    perm = np.argsort(idx, kind="stable")
+    counts = np.bincount(idx, minlength=rows).astype(np.int64)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    key = np.repeat(np.arange(rows), counts)
+    tail = np.zeros(n, bool)
+    tail[offsets[1:][counts > 0] - 1] = True
+    window = min(16, window * lanes)
+    slots, per_warp, warps = threads // lanes, 32 // lanes, threads // 32
+    tile = slots * window
+    zero = np.zeros(d, g.dtype)
+    out = np.zeros((rows, d), g.dtype)
+    carries, owns = {}, {}
+    for t in range(max(1, -(-n // tile))):
+        base = t * tile
+        trail, flag, first, first_row = [], [], [], []
+        for s in range(slots):
+            acc, fst, row = zero, None, None
+            for j in range(base + s * window,
+                           min(base + (s + 1) * window, n)):
+                acc = acc + g[perm[j]]
+                if tail[j]:
+                    if fst is None:
+                        fst, row = acc, key[j]
+                    else:
+                        out[key[j]] = acc
+                    acc = zero
+            trail.append(acc)
+            flag.append(fst is not None)
+            first.append(fst)
+            first_row.append(row)
+        incl, iflag = list(trail), list(flag)
+        for w in range(warps):
+            lo = w * per_warp
+            h = 1
+            while h < per_warp:
+                prev, pflag = list(incl), list(iflag)
+                for p in range(h, per_warp):
+                    if not pflag[lo + p]:
+                        incl[lo + p] = prev[lo + p - h] + prev[lo + p]
+                    iflag[lo + p] = pflag[lo + p] or pflag[lo + p - h]
+                h *= 2
+        cin, cflag = [zero], [False]
+        for w in range(1, warps):
+            a, af = incl[w * per_warp - 1], iflag[w * per_warp - 1]
+            cin.append(a if af else cin[-1] + a)
+            cflag.append(cflag[-1] or af)
+        takes = (0 < base < n and offsets[key[base]] < base)
+        for s in range(slots):
+            w, p = divmod(s, per_warp)
+            xv = incl[s - 1] if p else zero
+            xf = iflag[s - 1] if p else False
+            x = xv if xf else cin[w] + xv
+            if flag[s]:
+                if takes and not xf and not cflag[w]:
+                    owns[t] = x + first[s]
+                else:
+                    out[first_row[s]] = x + first[s]
+        last = slots - 1
+        w = last // per_warp
+        carries[t] = incl[last] if iflag[last] else cin[w] + incl[last]
+        if takes and t in owns:
+            t0 = offsets[key[base]] // tile
+            p = [zero] * slots
+            for k in range(t - t0):
+                p[k % slots] = p[k % slots] + carries[t0 + k]
+            while len(p) > 1:
+                p = [p[i] + p[i + 1] for i in range(0, len(p), 2)]
+            out[key[base]] = p[0] + owns[t]
+    return out
+
+
+ORDER_SHAPES = [(32, 2, np.float32), (64, 2, np.float32),
+                (64, 12, np.float32), (64, 3, np.float64),
+                (128, 40, np.float32), (64, 130, np.float32)]
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+@pytest.mark.parametrize("threads,d,dtype", ORDER_SHAPES)
+def test_segment_sum_plain_is_the_order_by_hand(case, threads, d, dtype):
+    """``segment_sum_plain`` bit-equal to ``_order_by_hand`` on every
+    edge case, at 1 (f32 D=2), 4 (f32 D=12, f64 D=3), 16 (D=40) and 32
+    (D=130) lanes an entry and 1, 2 and 4 warps a tile, on cotangents of
+    mixed magnitude (so that another order of adds shows)."""
+    window = 4
+    lanes = slot_shape(d, np.dtype(dtype).itemsize)[0]
+    idx, rows = _segment_case(case, window, threads // lanes)
+    idx = np.random.RandomState(d).permutation(idx)
+    rng = np.random.RandomState(threads + d)
+    g = (rng.randn(len(idx), d) * 10.0 ** rng.randint(
+        -3, 4, (len(idx), 1))).astype(dtype)
+    plan = GatherRows.build(idx, rows, "cpu", window, threads)
+    got = segment_sum_plain(torch.from_numpy(g), plan.perm, plan.offsets,
+                            window, threads)
+    want = _order_by_hand(g, idx, rows, window, threads, lanes)
+    assert np.array_equal(got.numpy(), want)
+    # A column slice keeps the order when it is told the full width's
+    # lanes.
+    part = segment_sum_plain(torch.from_numpy(g[:, :1].copy()), plan.perm,
+                             plan.offsets, window, threads, lanes)
+    assert np.array_equal(part.numpy(), want[:, :1])
+
+
 def test_segment_sum_plain_keeps_the_tile_order():
     """The order is the kernel's: one row of 5,000 terms of mixed
-    magnitude summed per window, then per tile, then over the tiles,
-    equal to that order written out by hand and not to the strictly
-    left-to-right CSR sum of the same terms."""
+    magnitude (f32 D=2: one lane an entry, tiles of 32 windows of 4 at 32
+    threads) summed per window, by a Kogge-Stone scan over each tile's
+    windows, then the 39 full tiles' carries into 32 slots and a pairwise
+    tree, the last tile's own piece last; equal to that order written out
+    by hand and not to the strictly left-to-right CSR sum of the same
+    terms."""
     rng = np.random.RandomState(3)
     g = torch.from_numpy((rng.randn(5_000, 2) * 10.0 ** rng.randint(
         -3, 4, (5_000, 1))).astype(np.float32))
@@ -296,82 +435,137 @@ def test_segment_sum_plain_keeps_the_tile_order():
     offsets = torch.tensor([0, 5_000], dtype=torch.int32)
     one = segment_sum_plain(g, perm, offsets, 4, 32)
     assert torch.equal(one, segment_sum_plain(g, perm, offsets, 4, 32))
-    # By hand: windows of 4 left to right, a tile's 32 windows left to
-    # right, then the 40 tiles (the last one partial) left to right.
+    # By hand: windows of 4 left to right from 0.0.
     pieces = []
     for s in range(0, 5_000, 4):
         acc = torch.zeros(2)
         for row in g[s:s + 4]:
             acc = acc + row
         pieces.append(acc)
-    total = None
-    for t in range(0, len(pieces), 32):
-        tile = pieces[t]
-        for p in pieces[t + 1:t + 32]:
-            tile = tile + p
-        total = tile if total is None else total + tile
-    assert torch.equal(one[0], total)
+    # Each full tile (128 entries) has no row end: its carry is the last
+    # value of the scan v[i] = v[i - h] + v[i], h = 1, 2, 4, 8, 16.
+    carries = []
+    for t in range(39):
+        v = pieces[32 * t:32 * t + 32]
+        for h in (1, 2, 4, 8, 16):
+            v = [v[i] if i < h else v[i - h] + v[i] for i in range(32)]
+        carries.append(torch.zeros(2) + v[31])
+    # The last tile (entries 4,992-4,999): the row ends in its second
+    # window, whose carry in is the first window's.
+    own = (torch.zeros(2) + pieces[1248]) + pieces[1249]
+    # The 39 carries into 32 slots (slot i: tiles i and i + 32), a
+    # pairwise tree, own last.
+    slots = [torch.zeros(2) for _ in range(32)]
+    for k, c in enumerate(carries):
+        slots[k % 32] = slots[k % 32] + c
+    while len(slots) > 1:
+        slots = [slots[i] + slots[i + 1] for i in range(0, len(slots), 2)]
+    assert torch.equal(one[0], slots[0] + own)
     assert not torch.equal(one, neighbor_sum_plain(offsets, perm, g))
 
 
 def test_tile_layout_fields():
-    """The row of each window's first entry and the rows each tile owns
-    (every row once), against a direct count."""
+    """The row ends, the run of each window's first entry and the rows
+    in run order (non-empty, then empty), against a direct count; the
+    plan's ``entries`` are ``perm`` with bit 31 set on the row ends, and
+    its tiles at 1, 4 and 32 lanes an entry hold ``threads / lanes``
+    slots of ``min(16, window · lanes)`` entries."""
     idx = skewed_index(2, 300, 4, 32)
     counts = np.bincount(idx, minlength=300)
     offsets = np.concatenate([[0], np.cumsum(counts)])
-    lay = tile_layout(offsets, 4, 32)
-    n, tile = len(idx), 4 * 32
+    n = len(idx)
     key = np.repeat(np.arange(300), counts)
-    assert np.array_equal(lay["window_rows"], key[::4])
-    tiles = -(-n // tile)
-    assert lay["tile_rows"][0] == 0 and lay["tile_rows"][-1] == 300
-    assert len(lay["tile_rows"]) == tiles + 1
-    for t in range(tiles):
-        own = np.arange(lay["tile_rows"][t], lay["tile_rows"][t + 1])
-        assert ((offsets[own] >= t * tile).all()
-                and (t == tiles - 1 or (offsets[own] < (t + 1) * tile).all()))
-    assert (np.diff(lay["tile_rows"]) >= 0).all()
-    assert all(a.dtype == np.int32 for a in lay.values())
+    lay = tile_layout(offsets, 4, 32)
+    ends = np.flatnonzero(np.append(key[1:] != key[:-1], True))
+    assert np.array_equal(lay["ends"], ends)
+    assert lay["runs"] == (counts > 0).sum() == len(ends)
+    assert np.array_equal(lay["window_runs"],
+                          [(ends < a).sum() for a in range(0, n, 4)])
+    rr = lay["run_rows"]
+    assert sorted(rr.tolist()) == list(range(300))
+    assert np.array_equal(rr[:lay["runs"]], np.flatnonzero(counts))
+    assert (counts[rr[lay["runs"]:]] == 0).all()
+    # The run of a window's first entry names its row.
+    assert np.array_equal(rr[lay["window_runs"]], key[::4])
+    assert all(lay[k].dtype == np.int32
+               for k in ("ends", "window_runs", "run_rows"))
     empty = tile_layout(np.zeros(4, np.int64))
-    assert empty["window_rows"].shape == (0,)
-    assert empty["tile_rows"].tolist() == [0, 3]
+    assert empty["window_runs"].shape == empty["ends"].shape == (0,)
+    assert empty["run_rows"].tolist() == [0, 1, 2] and empty["runs"] == 0
+    plan = GatherRows.build(idx, 300, "cpu", 4, 32)
+    for d, lanes in ((2, 1), (12, 4), (130, 32)):
+        state = plan.launch_state(d)
+        assert (state.lanes, state.slot_window) == (lanes,
+                                                     min(16, 4 * lanes))
+        assert state.tile == 32 // lanes * state.slot_window
+        assert state.tiles == -(-n // state.tile)
+    assert GatherRows.build(np.zeros(0, np.int64), 3, "cpu").launch_state(
+        2).tiles == 1
+    tagged = plan.entries.numpy()
+    assert np.array_equal(tagged < 0, np.isin(np.arange(n), ends))
+    assert np.array_equal(tagged & 0x7fffffff, plan.perm.numpy())
+    for name in ("window_runs", "run_rows"):
+        assert np.array_equal(getattr(plan, name).numpy(), lay[name])
     for bad in (dict(window=6), dict(threads=48), dict(threads=1024)):
         with pytest.raises(ValueError):
             tile_layout(offsets, **bad)
 
 
 def test_kernel_args_struct():
-    """The ctypes mirror of csrc/segment_sum.cu's SegmentPlan: 7
-    pointers, the entry count and 4 ints (80 bytes, no padding), filled
-    from the plan; its carry is the plan's scratch (a carry and an own
-    piece of D elements a tile); a wider D or another type takes a new
-    scratch and a new struct."""
+    """The ctypes mirror of csrc/segment_sum.cu's SegmentPlan: 6
+    pointers, the entry count and 7 ints (88 bytes, the last 4 padding),
+    filled from the plan and its launch state for (D, type): the order's
+    lanes and slot window
+    and tiles, each tile's incoming row and its first tile, a carry and
+    an own piece of D elements a tile, zeroed flags; made once per (D,
+    type)."""
     import ctypes
-    plan = GatherRows.build(skewed_index(4), 300, "cpu", 4, 64)
-    args = plan.kernel_args(2)
-    assert ctypes.sizeof(args) == 80
-    assert (args.n, args.rows, args.window, args.threads, args.tiles) == (
-        plan.perm.numel(), 300, 4, 64, plan.tiles)
-    assert args.perm == plan.perm.data_ptr()
-    assert args.carry == plan.scratch.data_ptr()
-    assert plan.scratch.numel() == 2 * plan.tiles * 2
-    assert plan.scratch.dtype == torch.float32
-    assert plan.kernel_args(1) is args
-    wide = plan.kernel_args(5)
-    assert wide is not args and plan.scratch.numel() == 2 * plan.tiles * 5
-    assert wide.carry == plan.scratch.data_ptr()
-    f64 = plan.kernel_args(5, torch.float64)
-    assert f64 is not wide and plan.scratch.dtype == torch.float64
-    assert f64.carry == plan.scratch.data_ptr()
+    idx = skewed_index(4)
+    plan = GatherRows.build(idx, 300, "cpu", 4, 64)
+    state = plan.launch_state(2)
+    args = state.args
+    assert ctypes.sizeof(args) == 88
+    assert (state.lanes, state.slot_window, state.vec) == (1, 4, 2)
+    assert state.tile == 64 * 4 and state.tiles == -(-len(idx) // 256)
+    assert (args.n, args.rows, args.runs, args.window, args.slot_window,
+            args.threads, args.lanes, args.tiles) == (
+        plan.perm.numel(), 300, plan.runs, 4, 4, 64, 1, state.tiles)
+    assert args.entries == plan.entries.data_ptr()
+    assert args.window_runs == plan.window_runs.data_ptr()
+    assert args.run_rows == plan.run_rows.data_ptr()
+    assert args.tile_in == state.tile_in.data_ptr()
+    assert args.scratch == state.scratch.data_ptr()
+    assert args.flags == state.flags.data_ptr()
+    assert state.scratch.numel() == 2 * state.tiles * 2
+    assert state.scratch.dtype == torch.float32
+    assert not state.flags.any()
+    # Each tile's incoming row: the row of its first entry where that
+    # row started in an earlier tile, and that tile.
+    offsets = plan.offsets.numpy().astype(np.int64)
+    key = np.repeat(np.arange(300), np.diff(offsets))
+    for t, (row, t0) in enumerate(state.tile_in.tolist()):
+        start = t * state.tile
+        takes = 0 < start and offsets[key[start]] < start
+        assert (row, t0) == ((key[start], offsets[key[start]] // 256)
+                             if takes else (-1, t))
+    assert plan.launch_state(2) is state
+    wide = plan.launch_state(12)
+    assert (wide.lanes, wide.slot_window, wide.vec, wide.tile) == (
+        4, 16, 4, 16 * 16)
+    assert (wide.args.lanes, wide.args.slot_window) == (4, 16)
+    assert wide.scratch.numel() == 2 * wide.tiles * 12
+    f64 = plan.launch_state(12, torch.float64)
+    assert (f64.lanes, f64.slot_window, f64.vec, f64.tile) == (8, 16, 2, 128)
+    assert f64.scratch.dtype == torch.float64 and f64 is not wide
+    assert plan.launch_state(2).args is args
 
 
 def test_plan_layout_and_checks():
     """The plan holds the transposed index (int32 ``perm`` and
-    ``offsets``), the tile layout of its (``window``, ``threads``), zeroed
-    flags (one a tile) and counter, no carry before a card's first
-    backward, and one launch a backward; bad indices, row counts,
-    cotangents and devices raise."""
+    ``offsets``), ``tile_layout``'s fields of its (``window``,
+    ``threads``), no launch state before a backward asks for one, and one
+    launch a backward; bad indices, row counts, cotangents and devices
+    raise."""
     idx = skewed_index(0)
     plan = GatherRows.build(torch.from_numpy(idx), 300, "cpu")
     assert (plan.window, plan.threads) == (WINDOW, THREADS)
@@ -380,13 +574,13 @@ def test_plan_layout_and_checks():
         np.argsort(idx, kind="stable")))
     assert plan.offsets.numel() == 301 and plan.offsets[-1] == len(idx)
     lay = tile_layout(plan.offsets.numpy(), WINDOW, THREADS)
-    for name in ("window_rows", "tile_rows"):
+    for name in ("window_runs", "run_rows"):
         assert np.array_equal(getattr(plan, name).numpy(), lay[name])
-    assert plan.tiles == len(lay["tile_rows"]) - 1 == -(-len(idx) // (
-        WINDOW * THREADS))
-    assert plan.flags.dtype == plan.counter.dtype == torch.int32
-    assert not plan.flags.any() and plan.counter.tolist() == [0]
-    assert plan.scratch is None
+    assert plan.entries.dtype == torch.int32 and plan.runs == lay["runs"]
+    assert not plan._launches
+    state = plan.launch_state(2)
+    assert state.tiles == -(-len(idx) // (WINDOW * THREADS))
+    assert state.flags.dtype == torch.int32 and not state.flags.any()
     assert plan.launches_per_backward == 1
     with pytest.raises(ValueError, match="outside"):
         GatherRows.build(np.array([0, 300]), 300, "cpu")
@@ -406,6 +600,24 @@ def test_plan_layout_and_checks():
     meta = GatherRows.build(idx, 300, "meta")
     with pytest.raises(ValueError, match="no segment_sum kernel"):
         meta.backward(torch.zeros(len(idx), 2, device="meta"))
+
+
+def test_backward_range_only_under_the_profiler(monkeypatch):
+    """Under ``torch.profiler`` a backward is the range
+    ``<name>.backward``; without a profiler it opens no range (which
+    costs more host time than the label lookup's kernel on the card)."""
+    import contextlib
+    plan = GatherRows.build(skewed_index(0), 300, "cpu", name="readout.t")
+    g = torch.rand(plan.perm.numel(), 2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        plan.backward(g)
+    assert "readout.t.backward" in {e.key for e in prof.key_averages()}
+    opened = []
+    monkeypatch.setattr(gather, "annotate", lambda *a, **k: opened.append(
+        a) or contextlib.nullcontext())
+    assert torch.equal(plan.backward(g), plan.backward_plain(g))
+    assert not opened
 
 
 def test_plan_cache_rebuilds_only_on_a_new_index():
@@ -520,13 +732,14 @@ def test_distributed_step_with_plans_equals_single_device(tmp_path, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("d", [1, 2, 5, 16])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 12, 16])
 @pytest.mark.parametrize("window,threads", [(WINDOW, THREADS), (4, 32)])
 def test_backward_bit_equal_on_card(cuda_device, d, window, threads, dtype):
     """One kernel launch a backward, bit-equal to ``segment_sum_plain``
     run on the card and bit-identical over 3 calls and 2 replays of a
-    CUDA graph, in f32 and f64; the forward equal to ``x[idx]``; within
-    rtol 1e-5 of ``index_add_``."""
+    CUDA graph, in f32 and f64 (D = 3 and 12: 4 and 8 lanes an entry);
+    the forward equal to ``x[idx]``; within rtol 1e-5 of
+    ``index_add_``."""
     idx = skewed_index(d, 300, window, threads)
     plan = GatherRows.build(idx, 300, cuda_device, window, threads)
     rng = np.random.RandomState(d)
@@ -543,7 +756,8 @@ def test_backward_bit_equal_on_card(cuda_device, d, window, threads, dtype):
     again = [plan.backward(g) for _ in range(3)]
     assert all(torch.equal(x.grad, a) for a in again)
     # Every launch leaves its scratch zeroed, so a CUDA graph replays it.
-    assert not plan.flags.any() and plan.counter.item() == 0
+    state = plan.launch_state(d, x.dtype)
+    assert not state.flags.any()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         replayed = plan.backward(g)
@@ -557,15 +771,20 @@ def test_backward_bit_equal_on_card(cuda_device, d, window, threads, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SEGMENT_CASES)
-def test_segment_cases_bit_equal_on_card(cuda_device, case):
-    """The kernel on each edge case of the plain version's tests, f32 D=2
-    and D=5, bit-equal to ``segment_sum_plain`` on the card."""
+@pytest.mark.parametrize("threads", [32, 64])
+def test_segment_cases_bit_equal_on_card(cuda_device, case, threads):
+    """The kernel on each edge case of the plain version's tests, at one
+    and two warps a block: f32 D=2, 3, 5 and 12 and f64 D=3 and 12 (1, 4,
+    8 and 4 lanes; 4 and 8), bit-equal to ``segment_sum_plain`` on the
+    card."""
     idx, rows = _segment_case(case, 4, 32)
     plan = GatherRows.build(np.random.RandomState(0).permutation(idx), rows,
-                            cuda_device, 4, 32)
-    for d in (2, 5):
-        g = torch.from_numpy(np.random.RandomState(d).randn(
-            len(idx), d).astype(np.float32)).to(cuda_device)
+                            cuda_device, 4, threads)
+    for dtype, d in ((np.float32, 2), (np.float32, 3), (np.float32, 5),
+                     (np.float32, 12), (np.float64, 3), (np.float64, 12)):
+        rng = np.random.RandomState(d)
+        g = torch.from_numpy((rng.randn(len(idx), d) * 10.0 ** rng.randint(
+            -3, 4, (len(idx), 1))).astype(dtype)).to(cuda_device)
         assert torch.equal(segment_sum(g, plan), plan.backward_plain(g))
 
 
@@ -592,7 +811,8 @@ def test_wide_types_bit_equal_on_card(cuda_device, case, dtype, d):
     assert got.dtype == dtype and got.shape == (rows, d)
     assert torch.equal(got, plan.backward_plain(g))
     assert torch.equal(got, segment_sum(g, plan))
-    assert not plan.flags.any() and plan.counter.item() == 0
+    state = plan.launch_state(d, dtype)
+    assert not state.flags.any()
 
 
 @pytest.mark.cuda
@@ -620,8 +840,8 @@ def test_past_2_31_elements_on_card(cuda_device):
     """N·D past 2^31: 2^24 + 1,000 entries at f32 D = 128 (8.6 GB of
     cotangent) into 100,000 rows, one of them named 10^5 times; one
     launch, bit-equal to ``segment_sum_plain`` on the card column slice
-    by column slice (columns are independent, so a slice keeps the
-    order)."""
+    by column slice (columns are independent, so a slice told the full
+    width's lanes keeps the order)."""
     n, rows, d = 2 ** 24 + 1_000, 100_000, 128
     assert n * d >= 2 ** 31
     rng = np.random.RandomState(2)
@@ -633,7 +853,7 @@ def test_past_2_31_elements_on_card(cuda_device):
     before = gather.LAUNCHES
     got = segment_sum(g, plan)
     assert gather.LAUNCHES - before == 1
+    lanes = plan.launch_state(d).lanes
     for c in range(0, d, 32):
-        want = segment_sum_plain(g[:, c:c + 32].contiguous(), plan.perm,
-                                 plan.offsets, plan.window, plan.threads)
+        want = plan.backward_plain(g[:, c:c + 32], lanes)
         assert torch.equal(got[:, c:c + 32], want)
