@@ -195,6 +195,19 @@
    step's A1 and A2 launches as its plan says, the share of the bound
    finite); ``python -m gnnpe_tpu_torch.bench --device cuda --skip-halo``
    in a subprocess, whose last line must carry the root bench's keys.
+16. Scale phase (last): the ladder past dblp at full size,
+   ``run_rung("youtube")`` (1,134,890 vertices; PE -l 2 over
+   1,170,203,040 paths, a 14 GB vid table) and ``run_rung(
+   "youtube_skew")`` (the same scale, one 28,753-degree hub; PE at l=1,
+   2,987,624 paths), PE and PGE, 8 queries each: the PE rows' ``l``,
+   paths and blocks equal to gnnpe_tpu's, the index built in the mode
+   the resident rule chose before enumeration, both variants' spot
+   checks (query 0 and the heaviest against the flat f64 host filter)
+   true, serving without error, the peak device memory under the card's
+   and A1 launched for every VDE.  Then youtube's index is built once
+   more from its enumerated paths, and the PE table phase's dblp index
+   too: each build's peak (``max_memory_allocated`` above its paths)
+   must stay under the bytes the rule counts (``table_build_bytes``).
 
 The card's f64 data-graph VDE must equal the port's numpy
 ``gen_vde_host``.  Every query's candidates must equal the flat f64 host
@@ -204,8 +217,8 @@ every answer count must equal native refinement on
 those candidates; the table and device phases share the oracle of the
 phase before them.  Each kernel's launch count over the main path of
 the phases that run it (A1: PE, PE table, PE streamed, PGE, PGE device,
-both pre-verify runs, multi-device, ladder, train, the streamed payoff
-and bench; A2: multi-device, train (aggregation), the streamed payoff,
+both pre-verify runs, multi-device, ladder, train, the streamed payoff,
+bench and scale; A2: multi-device, train (aggregation), the streamed payoff,
 the uniform-ELL pre-verify and attention, and bench; segment_sum: train,
 the segment fit, the streamed payoff and multi-device) must be > 0, and
 the index tensors must live on the card.
@@ -248,6 +261,11 @@ MULTI_RANKS = 4           # ranks that share the card over gloo
 MULTI_STEPS = 5           # train steps per backend at world size 1
 MULTI_TRAIN_PATHS = 200_000
 MULTI_RANK_TIMEOUT_S = 420
+# The scale phase: the youtube rung at full size, then youtube_skew (PE
+# at l=1: its 3-vertex paths pass ``pe_max_paths``), PE and PGE over
+# SCALE_QUERIES queries each; the PE rows' path counts are gnnpe_tpu's.
+SCALE_RUNGS = (("youtube", 2, 1_170_203_040), ("youtube_skew", 1, 2_987_624))
+SCALE_QUERIES = 8
 # First and last loss of the 300-step binned fit from seed 0, as the
 # port's earlier revisions recorded them (4 digits): the kernels' sums
 # did not move, so neither may these.
@@ -747,16 +765,21 @@ def pe_table_phase(g, queries, device, record, oracle,
     rows = enum(order, cfg.path_length)
     tables = dp._vertex_tables(eng.vertices, device)
     keyt = dp.key_tables_device(eng.vertices, device)
-    key = dp.composite_sort_key_device(eng.paths, eng.vertices, keyt)
-    _, perm = torch.sort(key, stable=True)
+    key = dp.sort_key_steps(eng.paths, keyt)
+    perm = dp.stable_order(key)
+    check(torch.equal(perm.long(), torch.sort(key, stable=True)[1]),
+          "pe_table: the build's bounded stable sort differs from "
+          "torch.sort's stable order")
     vids, _ = dp.permute_fold(eng.paths, perm, tables, block_size)
     progs = {
         "enumerate": cuda_ms(lambda: enum(order, cfg.path_length), 3),
         "dedup": cuda_ms(lambda: rows[device_enumerate.dedup_mask(rows,
                                                                   rank)], 3),
-        "key": cuda_ms(lambda: dp.composite_sort_key_device(
-            eng.paths, eng.vertices, keyt), 3),
-        "sort": cuda_ms(lambda: torch.sort(key, stable=True), 3),
+        "key": cuda_ms(lambda: dp.sort_key_steps(eng.paths, keyt), 3),
+        "sort": cuda_ms(lambda: dp.stable_order(key), 3),
+        # One sort of the whole key, the build's program before it was
+        # bounded (twice the key's bytes beside it, and the sort's own).
+        "torch_sort": cuda_ms(lambda: torch.sort(key, stable=True), 3),
         "permute_fold": cuda_ms(lambda: dp.permute_fold(
             eng.paths, perm, tables, block_size), 3)}
     rec["device_programs_ms"] = progs
@@ -771,7 +794,43 @@ def pe_table_phase(g, queries, device, record, oracle,
     rec["modes"] = _compare_modes(g, oracle["engine"], eng)
     print("pe_table: search ms, array vs table mode: "
           + json.dumps(rec["modes"]))
+    rec["build_accounting"], again = _build_accounting(
+        "pe_table", eng.paths, eng.vertices, device, block_size)
+    check(np.array_equal(again._host_vids, idx._host_vids),
+          "pe_table: a second build gave another vid table")
     return launches, eng
+
+
+def _build_accounting(what, paths, vertices, device, block_size) -> tuple:
+    """The table-mode build from ``paths`` on the card, its peak
+    (``max_memory_allocated`` above what was allocated before it) held
+    under ``table_build_bytes`` — the bytes the resident rule counts.
+    Returns (the record, the index)."""
+    import torch
+    from gnnpe_tpu_torch.index import device_packed as dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    p, l = paths.shape
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    idx = dp.TablePESearch.build_from_paths(paths, vertices, device,
+                                            block_size=block_size)
+    peak = torch.cuda.max_memory_allocated() - base
+    model = dp.table_build_bytes(p, l, block_size, True,
+                                 vertices.num_vertices, vertices.dim)
+    table = idx.num_blocks * block_size * l * 4
+    check(peak <= model, f"{what}: the build's peak {peak} B passes the "
+          f"resident rule's count {model} B")
+    acc = dict(paths=int(p), peak_bytes=int(peak), model_bytes=int(model),
+               table_bytes=int(table),
+               peak_beyond_table_per_path=(peak - table) / p,
+               model_beyond_table_per_path=(model - table) / p,
+               build_phase_ms=idx.build_phase_ms)
+    print(f"{what}: build accounting: peak {peak} B above the paths, "
+          f"{acc['peak_beyond_table_per_path']:.2f} B a path beyond the "
+          f"padded table; the rule counts {model} B "
+          f"({acc['model_beyond_table_per_path']:.2f} B a path)")
+    return acc, idx
 
 
 def _stream_pass(name, g_tables, table, idx, union="device",
@@ -2102,6 +2161,176 @@ def ladder_phase(device, record, pe_oracle, pge_oracle) -> int:
     return launches[0]
 
 
+def _checked_vde(g, queries, device, what):
+    """The engines' VDE (``gen_vde`` on the card, through A1) of the data
+    graph ``g`` and of each of ``queries`` equal bit for bit to numpy's
+    ``gen_vde_host``, and A1 on ``g``'s CSR equal to its plain version.
+    Returns the data graph's VDE."""
+    import torch
+    from gnnpe_tpu_torch.embed.vde import gen_vde, gen_vde_host
+    from gnnpe_tpu_torch.graph.csr import to_device
+    from gnnpe_tpu_torch.ops import spmm
+
+    def equal(q, whose):
+        dev, host = gen_vde(q, 2, device), gen_vde_host(q, 2)
+        for name in ("x", "nx", "vde"):
+            check(np.array_equal(getattr(host, name), getattr(dev, name)),
+                  f"{what}: VDE {name} of {whose} on the card differs "
+                  "from numpy's")
+        return dev
+
+    vertices = equal(g, "the data graph")
+    for i, q in enumerate(queries):
+        equal(q, f"query {i}")
+    off, nbr, _, _ = to_device(g, device)
+    x = torch.from_numpy(vertices.x).to(device)
+    nx, plain = spmm.neighbor_sum(off, nbr, x), spmm.neighbor_sum_plain(
+        off, nbr, x)
+    check(torch.equal(nx, plain), f"{what}: spmm_csr f64 [{g.num_vertices}, "
+          f"2] differs from its plain version (max abs err "
+          f"{float((nx - plain).abs().max())})")
+    return vertices
+
+
+def _check_stable_order(key, order, what, step=1 << 26) -> None:
+    """``order`` a permutation of ``key``'s indices (each met once, in a
+    bool table) under which ``key`` does not decrease and equal keys keep
+    their index order: numpy's stable argsort, checked in slices."""
+    import torch
+    n = len(key)
+    seen = torch.zeros(n, dtype=torch.bool, device=key.device)
+    ordered = True
+    for lo in range(0, n, step):
+        o = order[lo:lo + step + 1].long()
+        seen[o] = True
+        k = key[o]
+        ordered &= bool(((k[1:] > k[:-1])
+                         | ((k[1:] == k[:-1]) & (o[1:] > o[:-1]))).all())
+    met = sum(int(seen[lo:lo + step].sum()) for lo in range(0, n, step))
+    check(met == n and ordered, f"{what}: stable_order of {n} keys meets "
+          f"{met} indices, in stable key order: {ordered}")
+
+
+def _rows_digest(rows, device, step=1 << 26) -> tuple:
+    """An order-free digest of the multiset of int32 rows (a tensor or a
+    numpy table, taken to ``device`` in slices): the row count and two
+    wrapping int64 sums of a mix of each row's vids."""
+    import torch
+    a = b = 0
+    for lo in range(0, len(rows), step):
+        r = torch.as_tensor(rows[lo:lo + step]).to(device).long()
+        h = torch.zeros(len(r), dtype=torch.int64, device=device)
+        for j in range(r.shape[1]):
+            h = (h ^ r[:, j]) * 0x100000001B3
+        a += int(h.sum())
+        b += int(((h ^ (h >> 29)) * 0x5851F42D4C957F2D).sum())
+    return len(rows), a % 2 ** 64, b % 2 ** 64
+
+
+def scale_phase(device, record) -> int:
+    """The ladder past dblp (``run_rung`` of each of SCALE_RUNGS on the
+    card, PE then PGE): first the rung's data-graph and query VDEs on the
+    card equal to numpy's bit for bit (the spot checks' oracle reads the
+    engine's VDE); then the PE row's ``l``, paths and blocks (one per 512
+    paths) those of gnnpe_tpu's row, built in the mode the resident rule
+    chose before enumeration, the peak device memory under the card's;
+    both variants' spot checks (query 0 and the heaviest against the flat
+    f64 host filter) true and serving without error; then the first
+    rung's build alone: its stable order of the sort key checked at full
+    size, its peak under the rule's count, and its vid table, on the card
+    and on the host, the enumerated rows (an order-free digest).  Returns
+    A1's launches over the ladder runs (the data graphs' and the queries'
+    VDEs)."""
+    import torch
+    from gnnpe_tpu_torch.frontends.ladder import run_rung
+    from gnnpe_tpu_torch.io.datasets import load_dataset, sample_query
+    from gnnpe_tpu_torch.ops import ell, spmm
+    card = torch.cuda.get_device_properties(device).total_memory
+    total, record["scale"], checked = 0, {}, {}
+    for name, l, paths in SCALE_RUNGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        g = load_dataset(name, seed=QUERY_SEEDS[0])
+        queries = [sample_query(g, QUERY_SIZE, tree=True,
+                                seed=QUERY_SEEDS[0] + i)
+                   for i in range(SCALE_QUERIES)]
+        checked[name] = g, _checked_vde(g, queries, device, f"scale {name}")
+        spmm.LAUNCHES = ell.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rows = run_rung(name, queries=SCALE_QUERIES, query_size=QUERY_SIZE,
+                        seed=QUERY_SEEDS[0], max_answers=MAX_ANSWERS,
+                        serve=True, device=device)
+        wall_s = time.perf_counter() - t0
+        launches = (spmm.LAUNCHES, ell.LAUNCHES)
+        record["scale"][name] = dict(rows=rows, wall_s=wall_s,
+                                     launches=launches)
+        for row in rows:
+            print(f"scale row: {json.dumps(row)}")
+        check([r["variant"] for r in rows] == ["pe", "pge"],
+              f"scale {name}: rows {[r['variant'] for r in rows]}")
+        pe = rows[0]
+        check(pe["l"] == l and pe["paths"] == paths
+              and pe["num_blocks"] == -(-paths // BLOCK_SIZE),
+              f"scale {name}: PE l={pe['l']}, {pe['paths']} paths, "
+              f"{pe['num_blocks']} blocks; gnnpe_tpu's row: l={l}, {paths}")
+        check(pe["pipeline"]["mode"] == pe["mode"],
+              f"scale {name}: the rule chose {pe['pipeline']['mode']}, "
+              f"the index is {pe['mode']}")
+        for row in rows:
+            v = row["variant"]
+            check(row["spot_verified"] and row["spot_verified_p90"],
+                  f"scale {name} {v}: spot check failed: {row['spot_error']}")
+            check(row["serving"] is not None
+                  and "error" not in row["serving"],
+                  f"scale {name} {v}: serving failed: {row['serving']}")
+            check(0 < row["peak_device_bytes"] < card,
+                  f"scale {name} {v}: peak {row['peak_device_bytes']} B")
+        check(launches[0] > 0 and launches[1] == 0,
+              f"scale {name}: launched {launches} (A1, A2)")
+        rule = {k: pe["pipeline"].get(k) for k in ("rule_need_bytes",
+                                                   "rule_free_bytes")}
+        print(f"scale {name}: data-graph and {SCALE_QUERIES} query VDEs on "
+              f"the card equal to numpy's; PE l={l} {paths} paths "
+              f"{pe['mode']} (rule {rule}), index {pe['index_bytes']} B "
+              f"({100 * pe['index_bytes'] / card:.1f} % of the card), peak "
+              f"{pe['peak_device_bytes']} B; PE and PGE spot-verified, "
+              f"serving without error; {wall_s:.1f} s, (A1, A2) launches "
+              f"{launches}")
+        total += launches[0]
+    # The largest rung's build alone, its paths enumerated first: its
+    # stable order at full size, its peak under the rule's count, and
+    # its vid tables the enumerated rows.
+    from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
+    from gnnpe_tpu_torch.index import device_packed as dp
+    from gnnpe_tpu_torch.paths.device_enumerate import enumerate_dedup_device
+    name, _, paths = SCALE_RUNGS[0]
+    g, vertices = checked[name]
+    rows = enumerate_dedup_device(g, degree_sorted_nodes(g), 3, device)
+    check(len(rows) == paths, f"scale {name}: {len(rows)} paths enumerated")
+    t0 = time.perf_counter()
+    key = dp.sort_key_steps(rows, dp.key_tables_device(vertices, device))
+    _check_stable_order(key, dp.stable_order(key), f"scale {name}")
+    del key
+    digest = _rows_digest(rows, device)
+    check_s = time.perf_counter() - t0
+    record["scale"]["build_accounting"], idx = _build_accounting(
+        f"scale {name}", rows, vertices, device, BLOCK_SIZE)
+    del rows
+    t0 = time.perf_counter()
+    check(idx.num_entries == paths
+          and _rows_digest(idx.d_vids[:paths], device) == digest
+          and _rows_digest(idx._host_vids[:paths], device) == digest,
+          f"scale {name}: the index's vid tables (device, host) hold other "
+          f"rows than the {paths} enumerated")
+    check_s += time.perf_counter() - t0
+    record["scale"]["build_checks_s"] = check_s
+    print(f"scale {name}: stable_order of {paths} keys a stable "
+          f"permutation; the index's vid tables on the card and on the host "
+          f"the enumerated rows (digest {digest[1]:#x}); checks {check_s:.1f} s")
+    del idx
+    return total
+
+
 def _hier_library(dev, x):
     """The library's version of ``HierarchicalEllDevice.apply``:
     ``embedding_bag`` over each level's kernel table, the level's input
@@ -2959,6 +3188,8 @@ def main() -> int:
     launches += bench_launches[0]
     peak("bench")
     fresh("bench")
+    launches += scale_phase(device, record)
+    fresh("scale")
     print("phase seconds: " + json.dumps(laps))
     kernel_launches = dict(
         spmm_csr=launches,

@@ -42,7 +42,8 @@ from gnnpe_tpu_torch.embed.pde import (PathEmbeddings, gen_pde,
 from gnnpe_tpu_torch.embed.vde import gen_vde
 from gnnpe_tpu_torch.graph.csr import CSRGraph, to_device
 from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
-from gnnpe_tpu_torch.index.bucket_build import build_streamed_from_chunks
+from gnnpe_tpu_torch.index.bucket_build import (BUILD_CHUNK_PATHS,
+                                                build_streamed_from_chunks)
 from gnnpe_tpu_torch.index.device_packed import (DevicePackedPESearch,
                                                  DevicePackedPGESearch,
                                                  PEQuery, PGEQuery,
@@ -57,10 +58,6 @@ from gnnpe_tpu_torch.paths.device_enumerate import enumerate_dedup_device
 from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
 from gnnpe_tpu_torch.utils.device import as_device
 from gnnpe_tpu_torch.utils.timers import StageTimer
-
-
-# Path rows one chunk of the streamed build keys and partitions at once.
-BUILD_CHUNK_PATHS = 1 << 22
 
 
 @dataclass
@@ -293,7 +290,8 @@ class PEEngine(_Engine):
             on_device = (isinstance(self.paths, torch.Tensor)
                          and self.paths.device == self.device)
             resident = builds_resident(p, l, block_size, self.device,
-                                       on_device)
+                                       on_device, self.vertices.num_vertices,
+                                       self.vertices.dim)
         if resident:
             self.searcher = TablePESearch.build_from_paths(
                 self.paths, self.vertices, self.device,

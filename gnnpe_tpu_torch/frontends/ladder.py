@@ -43,6 +43,7 @@ import argparse
 import gc
 import json
 import os
+import resource
 import sys
 import time
 
@@ -60,6 +61,23 @@ def _pct(vals, q):
 
 def _stage_pcts(stages, q):
     return {k: _pct(v, q) for k, v in stages.items()}
+
+
+def _reset_peak(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak_device_bytes(device):
+    """Peak bytes allocated on a CUDA ``device`` since ``_reset_peak``
+    (None elsewhere)."""
+    return (int(torch.cuda.max_memory_allocated(device))
+            if device.type == "cuda" else None)
+
+
+def _peak_host_rss_bytes() -> int:
+    """The process's peak resident host memory so far."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
 def _device_bytes(searcher) -> int:
@@ -162,7 +180,8 @@ def run_rung(name: str, queries: int = 50, query_size: int = 8,
         mesh = make_mesh(world, axes=("graph",), shape=(world,),
                          device=device)
         common = dict(rung=name, v=g.num_vertices, e=g.num_edges,
-                      device=str(device), world_size=world)
+                      device=str(device), world_size=world,
+                      gen_s=round(gen_s, 2))
         if not pge_only:
             _run_pe(g, qs, mesh, device, common, emit, est_paths3,
                     block_size, pe_max_paths, max_answers, pipelined,
@@ -188,6 +207,8 @@ def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
     from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
     from gnnpe_tpu_torch.paths.pipeline import offline_build_pipelined
     name = common["rung"]
+    t_all = time.time()
+    _reset_peak(device)
     pe_l = 2 if est_paths3 // 2 <= pe_max_paths else 1
     cfg = PEConfig.from_cli(l=pe_l, e=2, p=5, n=max_answers)
     eng = PEEngine(cfg, g, device)
@@ -216,12 +237,15 @@ def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
         t0 = time.time()
         eng.build_index(block_size=block_size, table=True, resident=forced)
         build_s = time.time() - t0
+    build_peak = _peak_device_bytes(device)
     if not pe_load:
+        # The oracle reads the index's host table (the same rows in index
+        # order), not a second copy of the paths; the engine's own paths
+        # (on the device after a resident build) go.
+        eng.paths = eng.searcher._host_vids[:eng.searcher.num_entries]
         eng.attach_mesh(mesh, packed=True)
     idx = eng.searcher
-    host_paths = (eng.paths.cpu().numpy() if isinstance(eng.paths,
-                                                        torch.Tensor)
-                  else np.asarray(eng.paths))
+    host_paths = np.asarray(eng.paths)
     num_paths = len(host_paths)
     # The same index built again sequentially — host enumeration, then
     # the build — for the pipelined build's speed-up, recorded in the row.
@@ -279,7 +303,8 @@ def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
         else:
             oracle = pe_candidates_chunked(eng.vertices, host_paths, q_pde,
                                            plan, qg.num_vertices,
-                                           epsilon=cfg.epsilon)
+                                           epsilon=cfg.epsilon,
+                                           workers=os.cpu_count() or 1)
         packed = idx.search(eng._stack([(q_pde, plan, qg.num_vertices)]))
         if not (len(oracle) == len(packed) and all(
                 np.array_equal(a, b) for a, b in zip(oracle, packed))):
@@ -329,6 +354,10 @@ def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
         prefill_s=prefill_s, prefill_blocks=prefill_blocks,
         index_bytes=index_bytes,
         host_table_bytes=int(idx._host_vids.nbytes) if streamed else None,
+        build_peak_device_bytes=build_peak,
+        peak_device_bytes=_peak_device_bytes(device),
+        peak_host_rss_bytes=_peak_host_rss_bytes(),
+        total_s=round(time.time() - t_all, 2),
         queries=len(lat), max_answers=max_answers,
         online_p50_ms=_pct(lat, 50), online_p90_ms=_pct(lat, 90),
         stage_p50_ms=_stage_pcts(stages, 50),
@@ -362,6 +391,8 @@ def _run_pge(g, qs, mesh, device, common, emit, block_size, max_answers,
                                               pge_candidates_chunked)
     from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
     name = common["rung"]
+    t_all = time.time()
+    _reset_peak(device)
     cfg = PGEConfig.from_cli(l=2, e=2, p=5, n=max_answers)
     eng = PGEEngine(cfg, g, device)
     t0 = time.time()
@@ -427,6 +458,9 @@ def _run_pge(g, qs, mesh, device, common, emit, block_size, max_answers,
         common, variant="pge", l=2,
         offline_s=round(off_s, 2), index_bytes=_device_bytes(idx),
         host_group_bytes=int(eng.group.nbytes + eng.label_group.nbytes),
+        peak_device_bytes=_peak_device_bytes(device),
+        peak_host_rss_bytes=_peak_host_rss_bytes(),
+        total_s=round(time.time() - t_all, 2),
         queries=len(lat), skipped=skipped, max_answers=max_answers,
         online_p50_ms=_pct(lat, 50), online_p90_ms=_pct(lat, 90),
         stage_p50_ms=_stage_pcts(stages, 50),

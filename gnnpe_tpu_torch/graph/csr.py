@@ -60,6 +60,7 @@ class CSRGraph:
     _nlf: Optional[np.ndarray] = field(init=False, default=None)
 
     def __post_init__(self):
+        _check_int32_arcs(self.offsets, self.neighbors)
         self.offsets = np.asarray(self.offsets, dtype=np.int32)
         self.neighbors = np.asarray(self.neighbors, dtype=np.int32)
         self.labels = np.asarray(self.labels, dtype=np.int32)
@@ -193,10 +194,12 @@ class CSRGraph:
         """Build from an undirected edge list int[E, 2] (dedup not applied —
         callers pass simple graphs, as the reference format guarantees)."""
         edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-        src = np.concatenate([edges[:, 0], edges[:, 1]])
-        dst = np.concatenate([edges[:, 1], edges[:, 0]])
-        order = np.lexsort((dst, src))
-        src, dst = src[order], dst[order]
+        # The arcs sorted by (source, target) as one sort of source·V +
+        # target: the same rows as a lexsort, in one pass.
+        v = np.int64(max(num_vertices, 1))
+        arcs = np.sort(np.concatenate([edges[:, 0] * v + edges[:, 1],
+                                       edges[:, 1] * v + edges[:, 0]]))
+        src, dst = arcs // v, arcs % v
         counts = np.bincount(src, minlength=num_vertices)
         offsets = np.concatenate([[0], np.cumsum(counts)])
         return cls(offsets=offsets, neighbors=dst, labels=labels)
@@ -288,10 +291,29 @@ def _searchsorted_rows(sorted_flat: np.ndarray, lo: np.ndarray,
     return out_lo
 
 
+def _check_int32_arcs(offsets, neighbors) -> None:
+    """Raise where int32 row pointers cannot address the arcs (2^31 or
+    more), rather than let a cast wrap them."""
+    offsets = np.asarray(offsets)
+    last = int(offsets[-1]) if len(offsets) else 0
+    if max(last, len(neighbors)) >= 2 ** 31:
+        raise ValueError(f"{max(last, len(neighbors))} arcs do not fit the "
+                         f"int32 row pointers of the CSR kernels (< 2^31)")
+
+
 def to_device(graph: CSRGraph, device):
     """(offsets, neighbors, labels, degrees) as int32 tensors on
-    ``device`` — the layout the CSR kernels take."""
+    ``device`` — the layout the CSR kernels take.  Raises ``ValueError``
+    where the arcs do not fit int32 offsets or the offsets are not the
+    neighbours' row pointers (a narrowed array wraps), instead of
+    narrowing them."""
     device = as_device(device)
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in (graph.offsets, graph.neighbors, graph.labels,
+    _check_int32_arcs(graph.offsets, graph.neighbors)
+    offsets = np.asarray(graph.offsets)
+    if len(offsets) and (offsets[0] != 0 or offsets[-1] != len(graph.neighbors)
+                         or (np.diff(offsets) < 0).any()):
+        raise ValueError("offsets are not row pointers into the "
+                         f"{len(graph.neighbors)} neighbours")
+    return tuple(torch.from_numpy(np.asarray(a, dtype=np.int32)).to(device)
+                 for a in (offsets, graph.neighbors, graph.labels,
                            graph.degrees))

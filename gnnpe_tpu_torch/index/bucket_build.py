@@ -57,6 +57,9 @@ from gnnpe_tpu_torch.paths.enumerate import (dedup_orientations_streaming,
                                              start_ranks)
 from gnnpe_tpu_torch.utils.device import as_device
 
+# Path rows of one chunk a streamed build keys and partitions at once
+# (the engine and the pipeline cut larger pieces to it).
+BUILD_CHUNK_PATHS = 1 << 22
 # Paths per bucket that gnnpe_tpu aims at, and its bounds on the count.
 BUCKET_PATHS = 32_000_000
 MIN_BUCKETS, MAX_BUCKETS = 8, 1024

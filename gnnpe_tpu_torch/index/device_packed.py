@@ -11,8 +11,9 @@ classes, one per layout:
     labels, degrees, vids and f64 pde for every entry;
   ``TablePESearch`` (table mode) — ``build_from_paths`` builds the index
     on the device from the paths and the f64 vertex embeddings: the
-    composite sort key, a stable ``torch.sort``, and the permute-fold of
-    the block summaries (ROADMAP Queue B4).  Only the int32 vid row is
+    composite sort key, its stable order (``stable_order``, sorting
+    bounded ranges), and the permute-fold of the block summaries
+    (ROADMAP Queue B4).  Only the int32 vid row is
     stored per entry; labels, degrees and vde are gathered through
     per-vertex tables.  ``save``/``load`` write and read gnnpe_tpu's own
     npz format.
@@ -176,13 +177,28 @@ def composite_sort_key(paths: np.ndarray, vertices,
 CHUNK_ELEMS = 1 << 27
 # Blocks folded per step of ``permute_fold`` (bounds its gathers).
 FOLD_BLOCKS = 1 << 16
+# Rows of one step of the table-mode build's sort key, and the most rows
+# ``stable_order`` sorts at once; with the fold's, the build's device
+# bytes a row of each step's temporaries (``table_build_bytes``: the key's
+# int64 columns and f32 sums; a sort's index, keys, sorted keys,
+# permutation and the sort's own double buffers; the fold's int64 rows
+# and one gathered column).
+KEY_ROWS = 1 << 24
+SORT_ROWS = 1 << 25
+KEY_ROW_BYTES = 96
+SORT_ROW_BYTES = 64
 # A saved vid table larger than this goes to a raw ``.vids.bin`` sidecar
 # (gnnpe_tpu's rule: np.savez would buffer the whole table).
 SIDECAR_BYTES = 1 << 30
-# Bytes a table-mode build holds per path beyond the vid rows: the key,
-# the sorted key and the permutation (int64 each), and the key's
-# per-position temporaries.
-BUILD_BYTES_PER_PATH = 48
+# Bytes a table-mode build holds a path through its sort, beyond the
+# paths themselves: the int64 key, the int32 permutation and the sort's
+# two bool masks (``table_build_bytes``).  Measured on an NVIDIA H100
+# 80GB HBM3 at 700 W with ``torch.cuda.max_memory_allocated`` (the paths
+# allocated before the build; chip_smoke.py's build accounting): the dblp
+# build of 60,779,769 paths peaked at 2,458,406,400 B, 28.45 B a path
+# beyond the padded table; youtube's, 1,170,203,040 paths, at
+# 20,580,449,792 B, 5.59 B a path beyond the table (its fold).
+BUILD_BYTES_PER_PATH = 14
 # Shares of the device's free memory taken where a budget is left None:
 # gnnpe_tpu's ``hbm_budget_bytes`` gives a resident vid table 0.35 of the
 # device (the rest is for summaries, vertex tables and search buffers) and
@@ -234,6 +250,95 @@ def composite_sort_key_device(paths: torch.Tensor, vertices,
     return (sig << 32) | u
 
 
+def sort_key_steps(paths: torch.Tensor, tables) -> torch.Tensor:
+    """``composite_sort_key_device`` of every path, computed ``KEY_ROWS``
+    paths at a time into one int64[P], so that its per-column
+    temporaries stay one step's."""
+    key = torch.empty(len(paths), dtype=torch.int64, device=paths.device)
+    for lo in range(0, len(paths), KEY_ROWS):
+        key[lo:lo + KEY_ROWS] = composite_sort_key_device(
+            paths[lo:lo + KEY_ROWS], None, tables)
+    return key
+
+
+def _in_range(key: torch.Tensor, lo, hi) -> torch.Tensor:
+    """bool mask of lo <= key < hi (None: unbounded)."""
+    if lo is None and hi is None:
+        return torch.ones_like(key, dtype=torch.bool)
+    if lo is None:
+        return key < hi
+    m = key >= lo
+    if hi is not None:
+        m &= key < hi
+    return m
+
+
+def stable_order(key: torch.Tensor) -> torch.Tensor:
+    """numpy's stable argsort of the int64 ``key`` (int32, or int64 past
+    2^31 entries), sorting at most ``SORT_ROWS`` keys at once: so the
+    build holds no sorted copy of the key and no full-size sort buffers
+    beside it, only the order and two bool masks.
+
+    The key range is cut into ranges of at most ``SORT_ROWS`` entries and
+    the ranges sorted in key order, each stably over its entries in index
+    order, so their concatenation is the global stable order.  A range
+    with more entries is cut at quantiles of a strided sample of its
+    keys (at most ``SORT_ROWS``, or where the stride meets none of them,
+    the range's keys among the first ``SORT_ROWS`` that hold any), every
+    sampled value becoming a one-value range of its own (so
+    every cut makes progress, however many keys tie); a one-value range
+    is already in order and is written as its indices, ``SORT_ROWS`` at a
+    time."""
+    n = len(key)
+    order = torch.empty(n, dtype=torch.int32 if n < 2 ** 31 else torch.int64,
+                        device=key.device)
+    if n <= SORT_ROWS:
+        order.copy_(torch.sort(key, stable=True)[1])
+        return order
+    stride = max(1, n // min(SORT_ROWS, 1 << 20))
+    pos, ranges = 0, [(None, None)]
+    while ranges:
+        lo, hi = ranges.pop()
+        m = _in_range(key, lo, hi)
+        # Counted in slices: a bool tensor's sum first casts it to int64.
+        count = sum(int(m[s0:s0 + SORT_ROWS].sum())
+                    for s0 in range(0, n, SORT_ROWS))
+        if count == 0:
+            continue
+        one_value = lo is not None and hi is not None and hi - lo == 1
+        if count > SORT_ROWS and not one_value:
+            sample = key[::stride][m[::stride]]
+            for s0 in range(0, n if not len(sample) else 0, SORT_ROWS):
+                sample = key[s0:s0 + SORT_ROWS][m[s0:s0 + SORT_ROWS]]
+                if len(sample):
+                    break
+            if len(sample):
+                parts = -(-count // (SORT_ROWS // 2))
+                sample = torch.sort(sample)[0]
+                cuts = torch.unique(sample[
+                    (torch.arange(1, parts, device=key.device) * len(sample))
+                    // parts]).tolist() or [int(sample[0])]
+                sub, start = [], lo
+                for v in cuts:
+                    sub += [(start, v), (v, v + 1)]
+                    start = v + 1
+                sub.append((start, hi))
+                ranges.extend(reversed(sub))
+                continue
+        if one_value:
+            for s0 in range(0, n, SORT_ROWS):
+                idx = torch.nonzero(m[s0:s0 + SORT_ROWS]).squeeze(1) + s0
+                order[pos:pos + len(idx)] = idx
+                pos += len(idx)
+            continue
+        idx = torch.nonzero(m).squeeze(1)
+        del m
+        perm = torch.sort(key[idx], stable=True)[1]
+        order[pos:pos + count] = idx[perm]
+        pos += count
+    return order
+
+
 def _vertex_tables_host(vertices) -> dict:
     """Per-vertex numpy tables with one sentinel row at index V (label
     -2, degree 0, zero embeddings) that pad rows gather through: the
@@ -263,7 +368,8 @@ def permute_fold(paths: torch.Tensor, order: torch.Tensor, tables: dict,
     """The sorted vid table and its block summaries (gnnpe_tpu's
     ``_compiled_permute_fold``, ROADMAP Queue B4), on the paths' device.
 
-    vids int32[NB·B, L] are ``paths[order]`` padded with the sentinel
+    vids int32[NB·B, L] are ``paths[order]`` (``order`` int32 or int64)
+    padded with the sentinel
     vertex V; per block: max of vde_up, min of x_dn and max of x_up
     (f32 [NB, L·D], position-major) and max degree (int32 [NB, L]).
     Max and min select, so the summaries equal gnnpe_tpu's bit for bit,
@@ -293,11 +399,7 @@ def permute_fold(paths: torch.Tensor, order: torch.Tensor, tables: dict,
 
 def _check_fits(need: int, device, what: str) -> None:
     """Raise unless ``need`` bytes are free on ``device``; a table that
-    does not fit is served by ``StreamedPESearch``.
-    Callers count the tables they keep and the per-path temporaries, not
-    the fixed-size ones (a fold step, the vertex tables), so ``need`` is
-    a lower bound: a build that passes can still meet CUDA's own
-    out-of-memory error, which raises too."""
+    does not fit is served by ``StreamedPESearch``."""
     free = free_bytes(device)
     if need > free:
         raise MemoryError(
@@ -331,23 +433,47 @@ def auto_resident(p: int, l: int, block_size: int, device,
 
 
 def table_build_bytes(p: int, l: int, block_size: int,
-                      paths_on_device: bool) -> int:
-    """Device bytes ``TablePESearch.build_from_paths`` holds at its peak,
-    a lower bound: the padded vid table, the per-path temporaries and,
-    where the paths come from the host, their upload."""
-    return (-(-p // block_size) * block_size * l * 4
-            + p * BUILD_BYTES_PER_PATH
-            + (0 if paths_on_device else p * l * 4))
+                      paths_allocated: bool, num_vertices: int,
+                      dim: int) -> int:
+    """Device bytes ``TablePESearch.build_from_paths`` of ``p`` paths of
+    ``l`` vertices allocates at its peak, beyond what is allocated before
+    it: the vertex tables (``num_vertices`` + 1 rows at VDE width
+    ``dim``), the paths where they are not yet allocated (uploaded from
+    the host, or to be enumerated on the device first), and the largest
+    of the build's three stages —
+      key:  the int64 key and one step's temporaries;
+      sort: the key, ``BUILD_BYTES_PER_PATH`` in all with the
+            permutation and the sort's masks, and one sort's temporaries;
+      fold: the permutation, the padded vid table and one fold step's
+            int64 rows, gathered column and the gather's own copy of
+            its index;
+    and per block its summaries and signature range with their
+    temporaries.  The key is dropped before the fold, and nothing else
+    is held at full size, so this is the whole peak but for the
+    allocator's rounding."""
+    rows = -(-p // block_size) * block_size
+    order = p * (4 if p < 2 ** 31 else 8)
+    key = p * 8 + KEY_ROW_BYTES * min(p, KEY_ROWS)
+    sort = (p * (BUILD_BYTES_PER_PATH - 4) + order
+            + SORT_ROW_BYTES * min(p, SORT_ROWS))
+    fold = (order + rows * l * 4
+            + (8 * l + 16 * dim) * min(rows, FOLD_BLOCKS * block_size))
+    blocks = rows // block_size * (12 * l * dim + 4 * l + 64)
+    tables = (num_vertices + 1) * (8 + 20 * dim)
+    return (tables + blocks + max(key, sort, fold)
+            + (0 if paths_allocated else p * l * 4))
 
 
 def builds_resident(p: int, l: int, block_size: int, device,
-                    paths_on_device: bool,
+                    paths_allocated: bool, num_vertices: int, dim: int,
                     budget_bytes: Optional[float] = None) -> bool:
     """What ``resident=None`` means where an index is built: resident iff
-    ``auto_resident`` says so and the build on the device, which needs
-    several times the table, fits the memory now free there."""
+    ``auto_resident`` says so and the build on the device
+    (``table_build_bytes``, the paths counted unless ``paths_allocated``)
+    fits the memory now free there."""
     return (auto_resident(p, l, block_size, device, budget_bytes)
-            and table_build_bytes(p, l, block_size, paths_on_device)
+            and table_build_bytes(p, l, block_size, paths_allocated,
+                                  num_vertices, dim)
             <= free_bytes(device))
 
 
@@ -640,13 +766,17 @@ class _PackedSearch:
         return self
 
     def _narrow(self, lo: int, hi: int) -> None:
+        # A part of a device tensor is copied so that the rest can go; the
+        # whole range (a mesh of one) keeps the tensor as it is.
         b = self.block_size
+        whole = (lo, hi) == (0, self.num_blocks)
+        cut = lambda t, a, z: t[a:z] if whole else t[a:z].clone()
         for name in self._ROW_FIELDS:
             if getattr(self, name, None) is not None:
-                setattr(self, name, getattr(self, name)[lo * b:hi * b].clone())
+                setattr(self, name, cut(getattr(self, name), lo * b, hi * b))
         for name in self._BLOCK_FIELDS:
             t = getattr(self, name)
-            setattr(self, name, t[lo:hi].clone() if isinstance(
+            setattr(self, name, cut(t, lo, hi) if isinstance(
                 t, torch.Tensor) else t[lo:hi])
         for name in self._HOST_ROW_FIELDS:
             setattr(self, name, getattr(self, name)[lo * b:hi * b])
@@ -995,8 +1125,8 @@ class TablePESearch(_TableLayout):
 
         paths: int32[P, L], numpy or a tensor (on ``device`` it is used
         in place); vertices: the f64 ``VertexEmbeddings``.  The
-        composite sort key is sorted stably with ``torch.sort`` (the
-        permutation of numpy's stable argsort), the vid table is
+        composite sort key, computed in steps, is ordered by
+        ``stable_order`` (numpy's stable argsort), the vid table is
         permuted and folded into block summaries, and one copy of the
         sorted table comes back for the host union and ``save``.  Stage
         times (ms, the device synchronised at each edge) land in
@@ -1011,7 +1141,8 @@ class TablePESearch(_TableLayout):
         nb = -(-p // block_size)
         on_device = (isinstance(paths, torch.Tensor)
                      and paths.device == device)
-        _check_fits(table_build_bytes(p, l, block_size, on_device),
+        _check_fits(table_build_bytes(p, l, block_size, on_device,
+                                      vertices.num_vertices, vertices.dim),
                     device, f"a table-mode build of {p} paths")
         t = StageTimer(device)
         with t.stage("tables"):
@@ -1019,21 +1150,23 @@ class TablePESearch(_TableLayout):
         with t.stage("upload"):
             paths = torch.as_tensor(paths, dtype=torch.int32, device=device)
         with t.stage("key"):
-            key = composite_sort_key_device(
-                paths, vertices, (tables["vde_up"], sig_radix_of(vertices),
-                                  tables["labels"].long()))
+            key = sort_key_steps(paths, (tables["vde_up"],
+                                         sig_radix_of(vertices),
+                                         tables["labels"].long()))
         with t.stage("sort"):
-            key, order = torch.sort(key, stable=True)
+            order = stable_order(key)
+        with t.stage("sig_ranges"):
+            # The sorted key's signature at each block's first and last
+            # row; the key goes before the fold allocates the table.
+            first = torch.arange(nb, device=device) * block_size
+            last = torch.clamp(first + block_size, max=p) - 1
+            sig_first, sig_last = (
+                (key[order[i].long()] >> 32).cpu().numpy()
+                for i in (first, last))
+            del key, first, last
         with t.stage("permute_fold"):
             vids, summaries = permute_fold(paths, order, tables, block_size)
             del order
-        with t.stage("sig_ranges"):
-            sig = key >> 32
-            first = torch.arange(nb, device=device) * block_size
-            last = torch.clamp(first + block_size, max=p) - 1
-            sig_first, sig_last = sig[first].cpu().numpy(), \
-                sig[last].cpu().numpy()
-            del key, sig
         with t.stage("d2h"):
             host_vids = _host_copy(vids)
         self = cls(vertices, tables, vids, host_vids, summaries, sig_first,

@@ -19,6 +19,7 @@ already reads.  This module adds:
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 import numpy as np
@@ -49,8 +50,10 @@ def powerlaw_graph(num_vertices: int, num_edges: int, num_labels: int,
     cdf = np.cumsum(w / w.sum())
     # Oversample: dedup + degree capping remove some pairs.
     m = int(num_edges * (1.6 if max_degree else 1.3)) + 16
-    u = np.searchsorted(cdf, rng.rand(m)).astype(np.int64)
-    v = np.searchsorted(cdf, rng.rand(m)).astype(np.int64)
+    draws = rng.rand(m), rng.rand(m)
+    with ThreadPoolExecutor(2) as pool:      # numpy's sorts leave the GIL
+        u, v = pool.map(lambda r: _search_sorted_keys(cdf, r), draws)
+    del draws
     u = np.minimum(u, num_vertices - 1)
     v = np.minimum(v, num_vertices - 1)
     keep = u != v
@@ -68,6 +71,16 @@ def powerlaw_graph(num_vertices: int, num_edges: int, num_labels: int,
     return CSRGraph.from_edges(num_vertices, edges, labels)
 
 
+def _search_sorted_keys(cdf: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    """int64 ``np.searchsorted(cdf, keys)``, searched in key order (each
+    search starts where the last ended, so a large table is read in
+    order rather than at random; the result does not depend on it)."""
+    order = np.argsort(keys)
+    out = np.empty(len(keys), np.int64)
+    out[order] = np.searchsorted(cdf, keys[order])
+    return out
+
+
 def _cap_degrees(pairs: np.ndarray, num_vertices: int,
                  max_degree: int) -> np.ndarray:
     """Keep edges (in the given order) whose endpoints both stay at or
@@ -81,8 +94,10 @@ def _cap_degrees(pairs: np.ndarray, num_vertices: int,
         over = (deg > max_degree)
         if not over.any():
             break
-        # combined occurrence rank of each incidence within its vertex
-        order = np.argsort(ids, kind="stable")
+        # combined occurrence rank of each incidence within its vertex:
+        # the stable order of ids, as one sort of (id, position) keys
+        n = np.int64(len(ids))
+        order = np.sort(ids * n + np.arange(n)) % n
         starts = np.concatenate(
             [[0], np.cumsum(np.bincount(ids,
                                         minlength=num_vertices))])[:-1]

@@ -102,6 +102,9 @@ def _check(offsets, neighbors, x, square):
                         f"{x.dtype} with {x.dim()} dims")
     if offsets.numel() < 1:
         raise ValueError("offsets must have at least one entry")
+    if neighbors.numel() >= 2 ** 31:
+        raise ValueError(f"{neighbors.numel()} arcs do not fit int32 "
+                         f"offsets (< 2^31)")
     if square and offsets.numel() != x.shape[0] + 1:
         raise ValueError(f"offsets has {offsets.numel()} entries for "
                          f"{x.shape[0]} rows of x")

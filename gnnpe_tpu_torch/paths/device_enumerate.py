@@ -10,14 +10,22 @@ One hop takes the rows int32[N, k] and returns int32[N', k+1]:
   * boolean-mask indexing compacts the survivors, in order.
 
 Rows are expanded in order with neighbours ascending, so the output
-equals ``enumerate_paths_from`` in rows and order.  A hop whose slots
-would pass ``cap`` is an overflow: the start chunk halves and runs
-again, and a single start that still overflows raises.  Rows are never
-dropped.  Callers that fold paths as they come (the orientation dedup,
-PGE's path groups) take them chunk by chunk from ``chunks``, so the cap
-also bounds their temporaries.  What the TPU version needed and this
-one drops: the static [cap, k] buffers with a validity mask, the
-argsort compaction, and the callers' own start-chunk sizes.
+equals ``enumerate_paths_from`` in rows and order.  A start chunk is
+sized by each start's slots in the last hop (exact for 3-vertex paths:
+the degrees of its neighbours summed), so a hub's chunk is as small as
+its own paths make it.  A hop whose slots would pass ``cap`` is an
+overflow: the start chunk halves and runs again, and a single start
+that still overflows raises.  Rows are never dropped.  Where no cap is
+given it is taken again before every chunk from the memory then free,
+so it shrinks with whatever the caller has allocated since (the
+deduplicated output, a fold's tables).  Callers that fold paths as they
+come (the orientation dedup, PGE's path groups) take them chunk by
+chunk from ``chunks``, so the cap also bounds their temporaries; the
+deduplicated rows, whose count is known for 2- and 3-vertex paths, are
+written into one table allocated before the first chunk.  What the TPU
+version needed and this one drops: the static [cap, k] buffers with a
+validity mask, the argsort compaction, and the callers' own start-chunk
+sizes.
 """
 
 from __future__ import annotations
@@ -38,6 +46,36 @@ def default_cap(device, num_vertices_per_path: int,
     what the caller allocates per output row to fold a chunk."""
     per_slot = 32 + 8 * (num_vertices_per_path + 1) + row_bytes
     return max(1, free_bytes(device) // 2 // per_slot)
+
+
+def known_path_count(graph: CSRGraph, num_vertices_per_path: int):
+    """The deduplicated path count before enumeration, for 2- and
+    3-vertex paths (one orientation per edge; Σ deg·(deg−1) directed
+    3-vertex paths, halved by the dedup); None for other lengths."""
+    if num_vertices_per_path == 2:
+        return int(graph.num_edges)
+    if num_vertices_per_path == 3:
+        deg = np.diff(graph.offsets).astype(np.int64)
+        return int((deg * (deg - 1)).sum()) // 2
+    return None
+
+
+def last_hop_slots(graph: CSRGraph, num_vertices_per_path: int) -> np.ndarray:
+    """float64[V]: an upper bound on the slots each start's paths take in
+    their last hop — the start's degree for 2-vertex paths, the degrees
+    of its neighbours summed for 3-vertex paths (exact: every 2-vertex
+    path expands by its last vertex's degree), and that sum times the
+    largest degree for each hop beyond."""
+    deg = np.diff(graph.offsets).astype(np.float64)
+    if num_vertices_per_path <= 2:
+        return deg
+    two = np.zeros(len(deg))
+    rows = np.nonzero(deg > 0)[0]
+    if len(rows):
+        two[rows] = np.add.reduceat(deg[graph.neighbors],
+                                    graph.offsets[:-1][rows].astype(np.int64))
+    max_deg = max(float(deg.max(initial=1.0)), 1.0)
+    return two * max_deg ** (num_vertices_per_path - 3)
 
 
 def dedup_mask(rows: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
@@ -66,7 +104,7 @@ class PathEnumerator:
             graph.offsets.astype(np.int64)).to(self.device)
         self.neighbors = torch.from_numpy(
             graph.neighbors.astype(np.int32)).to(self.device)
-        self._deg = np.diff(graph.offsets).astype(np.float64)
+        self._graph = graph
 
     def __call__(self, starts, num_vertices_per_path: int) -> torch.Tensor:
         """int32[P, L] on the device, in emission order."""
@@ -80,14 +118,12 @@ class PathEnumerator:
         """The same rows as int32[n, L] tensors, one per start chunk, in
         emission order."""
         l = num_vertices_per_path
-        cap = (default_cap(self.device, l, self.row_bytes)
-               if self.cap is None else self.cap)
         starts = np.asarray(starts, dtype=np.int32)
-        # Upper bound on a start's slots in the last hop.
-        max_deg = max(float(self._deg.max(initial=1.0)), 1.0)
-        est = np.maximum(self._deg[starts], 1.0) * max_deg ** max(l - 2, 0)
+        est = np.maximum(last_hop_slots(self._graph, l)[starts], 1.0)
         i, chunk = 0, len(starts)
         while i < len(starts):
+            cap = (default_cap(self.device, l, self.row_bytes)
+                   if self.cap is None else self.cap)
             chunk = min(chunk, len(starts) - i)
             while chunk > 1 and est[i:i + chunk].sum() > cap:
                 chunk //= 2
@@ -141,19 +177,36 @@ def dedup_chunks(graph: CSRGraph, order, num_vertices_per_path: int,
     """``enumerate_paths(graph, order, L, dedup=True)``'s rows as int32
     [n, L] tensors on ``device``, one per start chunk, in order: every
     chunk deduplicated as it comes, so the directed rows of one chunk at
-    most are held at once."""
+    most are held at once.  The cap counts the dedup's bytes per row
+    (two int64 ranks, the mask and the kept row)."""
     device = as_device(device)
+    l = num_vertices_per_path
     rank = torch.from_numpy(start_ranks(order, graph.num_vertices)).to(device)
-    for rows in PathEnumerator(graph, device).chunks(order,
-                                                     num_vertices_per_path):
+    enum = PathEnumerator(graph, device, row_bytes=17 + 4 * l)
+    for rows in enum.chunks(order, l):
         yield rows[dedup_mask(rows, rank)]
 
 
 def enumerate_dedup_device(graph: CSRGraph, order,
                            num_vertices_per_path: int, device) -> torch.Tensor:
-    """``dedup_chunks`` in one int32[P, L] tensor on ``device``."""
-    parts = list(dedup_chunks(graph, order, num_vertices_per_path, device))
-    if not parts:
-        return torch.zeros((0, num_vertices_per_path), dtype=torch.int32,
-                           device=as_device(device))
-    return torch.cat(parts)
+    """``dedup_chunks`` in one int32[P, L] tensor on ``device``: written
+    chunk by chunk into a table of ``known_path_count`` rows allocated
+    first (so no chunk is held beside a concatenated copy; a graph with
+    self-loops fills a prefix of it), or for longer paths, whose count
+    is not known, concatenated."""
+    device = as_device(device)
+    l = num_vertices_per_path
+    p = known_path_count(graph, l)
+    if p is None:
+        parts = list(dedup_chunks(graph, order, l, device))
+        return (torch.cat(parts) if parts else
+                torch.zeros((0, l), dtype=torch.int32, device=device))
+    out = torch.empty((p, l), dtype=torch.int32, device=device)
+    pos = 0
+    for rows in dedup_chunks(graph, order, l, device):
+        if pos + len(rows) > p:
+            raise ValueError(f"more than the {p} deduplicated paths "
+                             f"counted from the degrees")
+        out[pos:pos + len(rows)] = rows
+        pos += len(rows)
+    return out if pos == p else out[:pos]

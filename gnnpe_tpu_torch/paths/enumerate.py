@@ -119,8 +119,10 @@ def dedup_orientations_streaming(paths: np.ndarray,
 
 
 def start_ranks(order: np.ndarray, num_vertices: int) -> np.ndarray:
-    """Inverse of a start order: rank[order[i]] = i."""
-    rank = np.empty(num_vertices, dtype=np.int64)
+    """Inverse of a start order: rank[order[i]] = i.  A vertex outside
+    ``order`` ranks after every start (``len(order)``), so the dedup
+    keeps a path that ends there: its reverse is never enumerated."""
+    rank = np.full(num_vertices, len(order), dtype=np.int64)
     rank[np.asarray(order, dtype=np.int64)] = np.arange(len(order))
     return rank
 

@@ -24,10 +24,17 @@ def as_device(device) -> torch.device:
 
 
 def free_bytes(device) -> int:
-    """Memory free for new tensors on ``device``: the card's free memory
-    (``torch.cuda.mem_get_info``) for CUDA, available host RAM for the
-    CPU."""
+    """Memory free for new tensors on ``device``: for CUDA the card's
+    free memory (``torch.cuda.mem_get_info``) and the segments PyTorch's
+    caching allocator holds wholly unused (it gives those back before it
+    fails an allocation; the free pieces of segments that still hold
+    live blocks, ``inactive_split_bytes``, it cannot), for the CPU
+    available host RAM."""
     dev = as_device(device)
     if dev.type == "cuda":
-        return int(torch.cuda.mem_get_info(dev)[0])
+        split = torch.cuda.memory_stats(dev).get(
+            "inactive_split_bytes.all.current", 0)
+        return int(torch.cuda.mem_get_info(dev)[0]
+                   + torch.cuda.memory_reserved(dev)
+                   - torch.cuda.memory_allocated(dev) - split)
     return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")

@@ -234,7 +234,8 @@ def test_build_index_resident_switch(graphs, monkeypatch):
     eng = PEEngine(cfg, g, "cpu").offline()
     p = len(eng.paths)
     table_bytes = -(-p // 64) * 64 * 3 * 4
-    build = device_packed.table_build_bytes(p, 3, 64, False)
+    build = device_packed.table_build_bytes(p, 3, 64, False,
+                                            g.num_vertices, 2)
     assert build > table_bytes / device_packed.RESIDENT_SHARE
     monkeypatch.setattr(device_packed, "free_bytes", lambda d: build)
     eng.build_index(block_size=64, table=True)

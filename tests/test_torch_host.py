@@ -302,6 +302,10 @@ def test_pe_filters():
                                   chunk=97))
     same(*chunked)
     same(flat[1], chunked[1])
+    # The threaded oracle (one chunk range a worker) gives the same sets.
+    threaded = mod(PORT, "match.filter").pe_candidates_chunked(
+        ve[PORT], paths, query[PORT], plan, nq, chunk=97, workers=4)
+    same(chunked[0], threaded)
     assert sum(map(len, flat[1])) > 0
     mask = np.random.RandomState(3).rand(len(plan), len(paths)) < 0.01
     same(*both("match.device_filter", "extract_candidates",
