@@ -138,7 +138,14 @@
    heaviest, against the flat host filter), serving without error, each
    query's Σ|candidates| equal to that phase's oracle (every query
    reaches the answer cap, so the answers alone could not tell) and the
-   mean answers to the mean of its 8 counts.
+   mean answers to the mean of its 8 counts.  Then the ladder's streamed
+   tier: ``run_rung("dblp", pe_only=True)`` on the same queries with a
+   resident budget of half the table (the rule, not a flag, sends it
+   streamed), a pool of ``STREAM_POOL_BLOCKS`` and a disk tier in a fresh
+   temporary directory: partitions spilled and the table mapped there,
+   the candidates equal to the PE oracle's, both spot checks, serving,
+   misses in the pool, and the directory empty once the index is freed;
+   its A1 launches (the VDEs) count on the main path.
 12. Uniform-ELL phase: ``build_ell(width=8, level2_width=8)`` on dblp,
    ``HierarchicalEll`` through kernel A2 (one launch a level: the level's
    input gets a zero row, every -1 pad points at it) bit-equal to its
@@ -914,9 +921,11 @@ def pe_streamed_phase(g, queries, device, record, oracle, table_eng,
               "streamed index")
         check(isinstance(idx._host_vids, np.memmap)
               and os.listdir(spill_dir) == [os.path.basename(
+                  idx._owned_dir)]
+              and os.listdir(idx._owned_dir) == [os.path.basename(
                   idx._owned_table_path)],
               "pe_streamed: the sorted table is not the one file left in "
-              "the spill directory")
+              "the build's own directory under the spill directory")
         rec["build_timings"] = eng.build_timings
         check(np.array_equal(idx._host_vids, table._host_vids),
               "pe_streamed: the bucketed build's vid table differs from the "
@@ -2158,6 +2167,74 @@ def ladder_phase(device, record, pe_oracle, pge_oracle) -> int:
           f"heaviest), serving without error, each query's candidates and "
           f"the mean answers equal to the phases' oracles; {wall_s:.1f} s, "
           f"(A1, A2) launches {launches}")
+    return launches[0] + _ladder_streamed(device, record, rows[0], pe_oracle)
+
+
+def _ladder_streamed(device, record, resident, pe_oracle) -> int:
+    """The ladder's streamed tier at dblp: ``run_rung("dblp",
+    pe_only=True)`` with a resident budget of half the table (so the
+    rule, not a flag, sends the rung streamed), a pool of
+    STREAM_POOL_BLOCKS (a quarter of the table) and a disk tier in a
+    fresh temporary directory: the build spilled its partitions and
+    mapped its table there, the candidates equal the PE oracle's, both
+    spot checks hold, serving ran, the pool missed, and freeing the
+    index left the directory empty.  Returns A1's launches over the
+    run."""
+    import os
+    from gnnpe_tpu_torch.frontends.ladder import run_rung
+    from gnnpe_tpu_torch.ops import ell, spmm
+    block_bytes = BLOCK_SIZE * 3 * 4
+    budget = resident["num_blocks"] * block_bytes / 2
+    spill_dir = tempfile.mkdtemp(prefix="gnnpe_smoke_spill_")
+    spmm.LAUNCHES = ell.LAUNCHES = 0
+    t0 = time.perf_counter()
+    (row,) = run_rung("dblp", queries=len(QUERY_SEEDS),
+                      query_size=QUERY_SIZE, seed=QUERY_SEEDS[0],
+                      max_answers=MAX_ANSWERS, serve=True, pe_only=True,
+                      spill_dir=spill_dir,
+                      cache_bytes=STREAM_POOL_BLOCKS * block_bytes,
+                      resident_budget_bytes=budget, device=device)
+    wall_s = time.perf_counter() - t0
+    launches = (spmm.LAUNCHES, ell.LAUNCHES)
+    left = os.listdir(spill_dir)
+    os.rmdir(spill_dir)
+    record["ladder_streamed"] = dict(row=row, wall_s=wall_s,
+                                     launches=launches)
+    print("ladder streamed row: " + json.dumps(row))
+    pipe = row["pipeline"] or {}
+    want = [int(sum(len(c) for c in w)) for w in pe_oracle["wants"]]
+    check(row["mode"] == pipe.get("mode") == "streamed"
+          and pipe.get("rule_need_bytes") is not None
+          and row["resident_budget_bytes"] == budget,
+          f"ladder streamed: mode {row['mode']}, pipeline {pipe}: the rule "
+          f"did not choose streamed under a budget of {budget} B")
+    check(pipe["spilled_bytes"] > 0 and pipe["table_memmap"] is True,
+          f"ladder streamed: spilled {pipe['spilled_bytes']} B, table "
+          f"memmap {pipe['table_memmap']}: the disk tier was not used")
+    check(row["candidates"] == want,
+          f"ladder streamed: candidates per query {row['candidates']}, the "
+          f"PE oracle's {want}")
+    check(row["mean_answers"] == round(float(np.mean(pe_oracle["counts"])),
+                                       1),
+          f"ladder streamed: mean answers {row['mean_answers']}")
+    check(row["spot_verified"] and row["spot_verified_p90"],
+          f"ladder streamed: spot check failed: {row['spot_error']}")
+    check(row["serving"] is not None and "error" not in row["serving"],
+          f"ladder streamed: serving failed: {row['serving']}")
+    check(row["pool_blocks"] == STREAM_POOL_BLOCKS
+          and row["cache_misses_sum"] > 0,
+          f"ladder streamed: pool of {row['pool_blocks']} blocks, "
+          f"{row['cache_misses_sum']} misses over the queries")
+    check(row["spill_dir_bytes_left"] == 0 and left == [],
+          f"ladder streamed: {row['spill_dir_bytes_left']} B ({left}) left "
+          f"in the spill directory")
+    check(launches[0] > 0 and launches[1] == 0,
+          f"ladder streamed: launched {launches} (A1, A2)")
+    print(f"ladder streamed: dblp PE streamed by the rule (budget {budget:.0f}"
+          f" B), spilled {pipe['spilled_bytes']} B, pool "
+          f"{row['pool_blocks']} blocks, {row['cache_misses_sum']} misses, "
+          f"candidates equal to the oracle's, spill directory empty; "
+          f"{wall_s:.1f} s, (A1, A2) launches {launches}")
     return launches[0]
 
 

@@ -257,7 +257,8 @@ class PEEngine(_Engine):
 
     def build_index(self, block_size: int = 512, table: bool = False,
                     resident=None, spill_dir=None, cache_bytes=None,
-                    cache: bool = True, packed: bool = True):
+                    cache: bool = True, packed: bool = True,
+                    budget_bytes=None):
         """VDE on the device, then either PDE and the host packed index
         (attach_device uploads it), or with ``table=True`` the
         table-mode index from the paths and the VDE, ready for
@@ -271,9 +272,11 @@ class PEEngine(_Engine):
         chunks of the paths (index/bucket_build.py), its partitions and
         sorted table in
         ``spill_dir`` where one is named and in host memory otherwise;
-        None builds resident where ``auto_resident`` says so and the
-        build fits (``builds_resident``).  ``cache_bytes`` and ``cache`` are
-        the streamed search's."""
+        None builds resident where ``auto_resident`` says so (with
+        ``budget_bytes`` as its budget; None means ``RESIDENT_SHARE`` of
+        the device's free memory) and the build fits
+        (``builds_resident``).  ``cache_bytes`` and ``cache`` are the
+        streamed search's."""
         self.vertices = self._vde(self.graph)
         self.build_timings = None
         self.data_pde = None
@@ -291,7 +294,7 @@ class PEEngine(_Engine):
                          and self.paths.device == self.device)
             resident = builds_resident(p, l, block_size, self.device,
                                        on_device, self.vertices.num_vertices,
-                                       self.vertices.dim)
+                                       self.vertices.dim, budget_bytes)
         if resident:
             self.searcher = TablePESearch.build_from_paths(
                 self.paths, self.vertices, self.device,

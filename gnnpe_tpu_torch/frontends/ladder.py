@@ -29,6 +29,24 @@ here), the launcher's world under ``torchrun``, where every rank builds
 the rung and rank 0 alone writes the rows.  Rows go where ``--out``
 says (one JSON line each, appended as produced) and to stdout.
 
+The streamed tier's budgets are options where gnnpe_tpu reads its
+environment (the port reads no ``GNNPE_*`` variable):
+  * ``--spill-dir D`` (``GNNPE_SPILL_DIR``): the disk tier.  A streamed
+    build puts its bucket files and its sorted table (an ``np.memmap``)
+    in a directory of its own made in D and removes it when the index is
+    freed.  gnnpe_tpu spills by itself past 0.4 (partitions) and 0.3
+    (table) of host memory; the port writes nothing where no directory
+    is named, and a build past those shares without one raises
+    ``MemoryError``.
+  * ``--cache-bytes N`` (``GNNPE_CACHE_BYTES``): the device pool of a
+    streamed index; unset, ``CACHE_SHARE`` of the free device memory.
+  * ``--no-cache`` (``GNNPE_STREAM_CACHE=0``): no pool; every chunk's
+    blocks are uploaded for its search.
+  * ``--resident-budget-bytes N`` (0.35 · ``GNNPE_HBM_BYTES``): the vid
+    table's budget in the rule that chooses resident or streamed;
+    unset, ``RESIDENT_SHARE`` of the free device memory.  It has no
+    effect under ``--force-streamed``.
+
 In the row beside gnnpe_tpu's fields: ``candidates``, Σ|candidates| of
 each query in order, which a caller can hold to an oracle where every
 query's answers reach ``max_answers``.  Not in the row: ``warm_s`` (the
@@ -46,6 +64,7 @@ import os
 import resource
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -94,6 +113,12 @@ def _free(eng, device) -> None:
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+
+
+def _dir_bytes(path) -> int:
+    """Bytes of the files under ``path`` (0 where it does not exist)."""
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
 
 
 def _candidates(result) -> int:
@@ -148,10 +173,17 @@ def run_rung(name: str, queries: int = 50, query_size: int = 8,
              pge_only: bool = False,
              pe_load: str = "",
              build_note: str = "",
-             out_path: str = "", *, device) -> list:
+             out_path: str = "",
+             spill_dir: Optional[str] = None,
+             cache_bytes: Optional[float] = None,
+             cache: bool = True,
+             resident_budget_bytes: Optional[float] = None, *,
+             device) -> list:
     """The rows of rung ``name`` on ``device`` (PE, then PGE, as the
     flags say).  ``out_path``, where given, gets each row as a JSON line
-    when it is produced (rank 0 only)."""
+    when it is produced (rank 0 only).  ``spill_dir``, ``cache_bytes``,
+    ``cache`` and ``resident_budget_bytes`` are the PE index's streamed
+    tier (the module's docstring)."""
     from gnnpe_tpu_torch.io.datasets import load_dataset, sample_query
     from gnnpe_tpu_torch.parallel.mesh import make_mesh
     device = as_device(device)
@@ -186,7 +218,8 @@ def run_rung(name: str, queries: int = 50, query_size: int = 8,
             _run_pe(g, qs, mesh, device, common, emit, est_paths3,
                     block_size, pe_max_paths, max_answers, pipelined,
                     prefill_seconds, force_streamed, serve, ab_sequential,
-                    pe_load, build_note)
+                    pe_load, build_note, spill_dir, cache_bytes, cache,
+                    resident_budget_bytes)
         if not pe_only:
             _run_pge(g, qs, mesh, device, common, emit, block_size,
                      max_answers, serve)
@@ -195,7 +228,8 @@ def run_rung(name: str, queries: int = 50, query_size: int = 8,
 
 def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
             pe_max_paths, max_answers, pipelined, prefill_seconds,
-            force_streamed, serve, ab_sequential, pe_load, build_note):
+            force_streamed, serve, ab_sequential, pe_load, build_note,
+            spill_dir, cache_bytes, cache, resident_budget_bytes):
     from gnnpe_tpu_torch.config import PEConfig
     from gnnpe_tpu_torch.embed.pde import gen_pde, gen_query_pde_table
     from gnnpe_tpu_torch.engine import PEEngine
@@ -215,19 +249,22 @@ def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
     eng.vertices = eng._vde(g)
     pipe_timings = None
     forced = False if force_streamed else None
+    tier = dict(spill_dir=spill_dir, cache_bytes=cache_bytes, cache=cache,
+                budget_bytes=resident_budget_bytes)
     if pe_load:
         # Serve a saved index (``save``'s npz, the port's or gnnpe_tpu's)
         # instead of building one, each rank reading its block range:
         # enumerate/build times then describe the load.
         t0 = time.time()
-        eng.searcher = dp.load(pe_load, eng.vertices, device, mesh=mesh)
+        eng.searcher = dp.load(pe_load, eng.vertices, device, mesh=mesh,
+                               cache_bytes=cache_bytes, cache=cache)
         build_s, enum_s = time.time() - t0, 0.0
         eng.paths = eng.searcher._host_vids[:eng.searcher.num_entries]
     elif pipelined:
         t0 = time.time()
         eng.paths, eng.searcher, pipe_timings = offline_build_pipelined(
             g, degree_sorted_nodes(g), cfg.path_length, eng.vertices,
-            device, block_size=block_size, resident=forced)
+            device, block_size=block_size, resident=forced, **tier)
         build_s = time.time() - t0
         enum_s = pipe_timings["enumerate_s"]
     else:
@@ -235,7 +272,8 @@ def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
         eng.offline()
         enum_s = time.time() - t0
         t0 = time.time()
-        eng.build_index(block_size=block_size, table=True, resident=forced)
+        eng.build_index(block_size=block_size, table=True, resident=forced,
+                        **tier)
         build_s = time.time() - t0
     build_peak = _peak_device_bytes(device)
     if not pe_load:
@@ -255,7 +293,8 @@ def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
         seq = PEEngine(cfg, g, device)
         seq.paths, _ = enumerate_paths(g, degree_sorted_nodes(g),
                                        cfg.path_length, dedup=True)
-        seq.build_index(block_size=block_size, table=True, resident=forced)
+        seq.build_index(block_size=block_size, table=True, resident=forced,
+                        **tier)
         seq_s = time.time() - t0
         _free(seq, device)
         ab = round(seq_s / max(build_s, 1e-9), 2)
@@ -275,6 +314,7 @@ def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
     lat, answers, cands = [], [], []
     stages = {"query_plan": [], "search": [], "refine": []}
     chunk_counts, survived, hit_rates = [], [], []
+    misses, uploaded = [], []
     for q in qs:
         t0 = time.time()
         r = eng.online(q, union="host")
@@ -290,6 +330,12 @@ def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
             if "cache_hits" in st:
                 tot = st["cache_hits"] + st["cache_misses"]
                 hit_rates.append(st["cache_hits"] / tot if tot else 1.0)
+                misses.append(st["cache_misses"])
+            if "uploaded_bytes" in st:
+                uploaded.append(st["uploaded_bytes"])
+    # The pool that served the queries above (serving may shrink it).
+    pool_blocks = ((idx._cache.capacity if idx._cache is not None else 0)
+                   if streamed else None)
 
     def pe_spot(qi: int) -> bool:
         qg = qs[qi]
@@ -344,7 +390,7 @@ def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
             print(f"[ladder:{name}] PE SERVING FAILED: {serving}",
                   file=sys.stderr)
     index_bytes = _device_bytes(idx)
-    emit(dict(
+    row = dict(
         common, variant="pe", l=pe_l, paths=num_paths,
         mode="streamed" if streamed else "resident",
         loaded_from=pe_load or None, build_note=build_note or None,
@@ -368,16 +414,28 @@ def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
                             if hit_rates else None),
         cache_hit_rate_min=(round(float(np.min(hit_rates)), 3)
                             if hit_rates else None),
+        spill_dir=spill_dir, cache_bytes=cache_bytes, cache=cache,
+        resident_budget_bytes=resident_budget_bytes, pool_blocks=pool_blocks,
+        cache_misses_p50=_pct(misses, 50), cache_misses_p90=_pct(misses, 90),
+        cache_misses_sum=int(np.sum(misses)) if misses else None,
+        uploaded_bytes_p50=_pct(uploaded, 50),
+        uploaded_bytes_p90=_pct(uploaded, 90),
+        uploaded_bytes_sum=int(np.sum(uploaded)) if uploaded else None,
         num_blocks=int(idx.num_blocks),
         mean_answers=round(float(np.mean(answers)), 1), candidates=cands,
         serving=serving, spot_verified=bool(spot_ok),
-        spot_verified_p90=bool(spot_ok_p90), spot_error=spot_err))
+        spot_verified_p90=bool(spot_ok_p90), spot_error=spot_err)
     print(f"[ladder:{name}] PE l={pe_l}: paths={num_paths} "
           f"enum={enum_s:.1f}s build={build_s:.1f}s "
           f"idx={index_bytes / 1e6:.0f}MB p50={np.median(lat):.0f}ms "
           f"p90={np.percentile(lat, 90):.0f}ms", file=sys.stderr)
     # Free the PE index before the PGE fold: both at once may not fit.
+    # Freeing a disk-tier index removes its files from the spill
+    # directory, which the row then shows empty.
     _free(eng, device)
+    row["spill_dir_bytes_left"] = (_dir_bytes(spill_dir) if spill_dir
+                                   else None)
+    emit(row)
 
 
 def _run_pge(g, qs, mesh, device, common, emit, block_size, max_answers,
@@ -519,6 +577,20 @@ def main(argv=None):
                     help="provenance note recorded in the PE row")
     ap.add_argument("--pe-max-paths", type=float, default=2_000_000_000,
                     help="PE l=2 feasibility cap in entries")
+    ap.add_argument("--spill-dir", default=None,
+                    help="the streamed build's disk tier (gnnpe_tpu's "
+                         "GNNPE_SPILL_DIR); default: host memory only")
+    ap.add_argument("--cache-bytes", type=float, default=None,
+                    help="the streamed index's device pool (gnnpe_tpu's "
+                         "GNNPE_CACHE_BYTES); default: 0.55 of the free "
+                         "device memory")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="no device pool: upload each chunk's blocks "
+                         "(gnnpe_tpu's GNNPE_STREAM_CACHE=0)")
+    ap.add_argument("--resident-budget-bytes", type=float, default=None,
+                    help="the vid table's budget in the resident rule "
+                         "(gnnpe_tpu's 0.35 * GNNPE_HBM_BYTES); default: "
+                         "0.35 of the free device memory")
     args = ap.parse_args(argv)
     all_rows = []
     for name in args.dataset.split(","):
@@ -532,6 +604,9 @@ def main(argv=None):
             pge_only=args.pge_only, pe_load=args.pe_load,
             build_note=args.build_note,
             pe_max_paths=int(args.pe_max_paths), out_path=args.out,
+            spill_dir=args.spill_dir, cache_bytes=args.cache_bytes,
+            cache=not args.no_cache,
+            resident_budget_bytes=args.resident_budget_bytes,
             device=args.device))
     if int(os.environ.get("RANK", 0)) == 0:
         print(json.dumps(all_rows))

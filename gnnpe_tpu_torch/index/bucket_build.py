@@ -35,6 +35,8 @@ is written where the caller did not say.
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -209,12 +211,15 @@ def build_streamed_bucketed(spill: BucketSpill, vertices, l: int, device,
                             table_path: Optional[str] = None,
                             base_epsilon: float = EPSILON, workers: int = 2,
                             cache_bytes: Optional[float] = None,
-                            cache: bool = True) -> StreamedPESearch:
+                            cache: bool = True,
+                            owned_dir: Optional[str] = None
+                            ) -> StreamedPESearch:
     """A fed ``BucketSpill`` made into a ``StreamedPESearch``.
 
     The sorted vid table lands in ``table_path`` (an ``np.memmap``, the
-    disk tier, which the index then owns and unlinks on ``close``) where
-    one is given, else in host memory, and equals
+    disk tier, which the index then owns and unlinks on ``close``, and
+    ``owned_dir`` with it) where one is given, else in host memory, and
+    equals
     ``StreamedPESearch.build_from_paths``'s either way.  Bucket jobs
     (sort, segment write, signature ranges, fold of the blocks held
     whole) run on ``workers`` threads; straddling and tail blocks fold
@@ -293,7 +298,7 @@ def build_streamed_bucketed(spill: BucketSpill, vertices, l: int, device,
         vertices, _vertex_tables(vertices, device, tabs), hv,
         tuple(torch.from_numpy(a).to(device) for a in out), blk_first,
         blk_last, sig_radix_of(vertices), p, b, base_epsilon, cache_bytes,
-        cache, owned_table_path=table_path)
+        cache, owned_table_path=table_path, owned_dir=owned_dir)
     t_put = time.perf_counter() - t0
     self.build_phase_ms = {
         "tables": t_tables * 1e3,
@@ -315,12 +320,16 @@ def build_streamed_from_chunks(chunks: Iterable[np.ndarray], p: int, graph,
     partitioned on ``workers`` threads and appended in order, then
     ``build_streamed_bucketed``.
 
-    spill_dir: where the partitions and the sorted table go (per-bucket
-    files, and ``leaf_table_<pid>.bin`` as an ``np.memmap``); ``None``
-    keeps both in host memory, and raises ``MemoryError`` where they
-    would pass ``SPILL_SHARE`` or ``TABLE_SHARE`` of it — nothing is
-    written where the caller did not say.  ``search_kw`` goes to the
-    ``StreamedPESearch`` (``base_epsilon``, ``cache_bytes``, ``cache``).
+    spill_dir: where the partitions and the sorted table go: a directory
+    of the call's own made in it (``spill_<random>``: per-bucket files,
+    and ``leaf_table.bin`` as an ``np.memmap``), which the index owns
+    and ``close`` removes, so that builds in one process or in several
+    never write each other's files; ``None`` keeps both in host memory,
+    and raises ``MemoryError`` where they would pass ``SPILL_SHARE`` or
+    ``TABLE_SHARE`` of it — nothing is written where the caller did not
+    say.  A build that fails removes its directory.  ``search_kw`` goes
+    to the ``StreamedPESearch`` (``base_epsilon``, ``cache_bytes``,
+    ``cache``).
     Returns (the index, timings in s and the bucket and spill counts)."""
     t_all = time.perf_counter()
     if spill_dir is None:
@@ -330,40 +339,53 @@ def build_streamed_from_chunks(chunks: Iterable[np.ndarray], p: int, graph,
             raise MemoryError(
                 f"a streamed build of {p} paths does not fit host memory "
                 f"({ram:.3g} B); name a spill_dir for the disk tier")
-    t0 = time.perf_counter()
-    bounds = sample_key_boundaries(graph, order, l, vertices, num_buckets(p))
-    spill = BucketSpill(bounds, l, spill_dir)
-    t_sample = time.perf_counter() - t0
+    own = None
+    if spill_dir is not None:
+        os.makedirs(spill_dir, exist_ok=True)
+        own = tempfile.mkdtemp(prefix="spill_", dir=spill_dir)
+    spill = None
+    try:
+        t0 = time.perf_counter()
+        bounds = sample_key_boundaries(graph, order, l, vertices,
+                                       num_buckets(p))
+        spill = BucketSpill(bounds, l, own)
+        t_sample = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    ktabs = key_tables(vertices)
+        t0 = time.perf_counter()
+        ktabs = key_tables(vertices)
 
-    def work(rows):
-        rows = np.ascontiguousarray(rows, dtype=np.int32)
-        return spill.partition(rows, composite_sort_key(rows, vertices,
-                                                        tables=ktabs))
+        def work(rows):
+            rows = np.ascontiguousarray(rows, dtype=np.int32)
+            return spill.partition(rows, composite_sort_key(
+                rows, vertices, tables=ktabs))
 
-    # At most ``workers`` chunks are being partitioned, and appends are
-    # made in arrival order.
-    pending: deque = deque()
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        for rows in chunks:
-            pending.append(pool.submit(work, rows))
-            if len(pending) > workers:
+        # At most ``workers`` chunks are being partitioned, and appends
+        # are made in arrival order.
+        pending: deque = deque()
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            for rows in chunks:
+                pending.append(pool.submit(work, rows))
+                if len(pending) > workers:
+                    spill.append(pending.popleft().result())
+            while pending:
                 spill.append(pending.popleft().result())
-        while pending:
-            spill.append(pending.popleft().result())
-    if spill.total != p:
-        raise ValueError(f"{spill.total} path rows were fed, {p} announced")
-    t_partition = time.perf_counter() - t0
+        if spill.total != p:
+            raise ValueError(f"{spill.total} path rows were fed, {p} "
+                             f"announced")
+        t_partition = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    table_path = (os.path.join(spill_dir, f"leaf_table_{os.getpid()}.bin")
-                  if spill_dir else None)
-    idx = build_streamed_bucketed(spill, vertices, l, device,
-                                  block_size=block_size,
-                                  table_path=table_path, workers=workers,
-                                  **search_kw)
+        t0 = time.perf_counter()
+        table_path = os.path.join(own, "leaf_table.bin") if own else None
+        idx = build_streamed_bucketed(spill, vertices, l, device,
+                                      block_size=block_size,
+                                      table_path=table_path, workers=workers,
+                                      owned_dir=own, **search_kw)
+    except BaseException:
+        if own is not None:
+            if spill is not None:
+                spill.close()
+            shutil.rmtree(own, ignore_errors=True)
+        raise
     timings = {"sample_s": t_sample, "partition_s": t_partition,
                "build_s": time.perf_counter() - t0,
                "total_s": time.perf_counter() - t_all,

@@ -63,6 +63,7 @@ arguments, and ``None`` means a share of the device's free memory.
 from __future__ import annotations
 
 import os
+import shutil
 import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
@@ -1207,7 +1208,8 @@ class StreamedPESearch(_TableLayout):
                  sig_last, sig_radix, num_entries, block_size,
                  base_epsilon: float = EPSILON,
                  cache_bytes: Optional[float] = None, cache: bool = True,
-                 owned_table_path: Optional[str] = None):
+                 owned_table_path: Optional[str] = None,
+                 owned_dir: Optional[str] = None):
         self._init_layout(vertices, tables, host_vids, summaries, sig_first,
                           sig_last, sig_radix, num_entries, block_size,
                           base_epsilon)
@@ -1216,9 +1218,11 @@ class StreamedPESearch(_TableLayout):
         self._cache = None
         self._ring = _StagingRing(self.device, block_size,
                                   host_vids.shape[1])
-        # The disk-tier table of a bucketed build belongs to the index
-        # and goes with ``close`` (``save`` writes its own sidecar).
+        # The disk-tier table of a bucketed build, and the build's own
+        # directory, belong to the index and go with ``close`` (``save``
+        # writes its own sidecar).
         self._owned_table_path = owned_table_path
+        self._owned_dir = owned_dir
 
     @classmethod
     def build_from_paths(cls, paths, vertices, device,
@@ -1329,9 +1333,10 @@ class StreamedPESearch(_TableLayout):
 
     def close(self) -> None:
         """Free the device's pool, tables and summaries, drop the host
-        table and unlink the disk-tier file a bucketed build left (the
-        index owns it; a mapped file's space is freed at the last
-        unmap).  A closed index raises on ``search``."""
+        table, unlink the disk-tier file a bucketed build left and
+        remove the build's directory (the index owns both; a mapped
+        file's space is freed at the last unmap).  A closed index raises
+        on ``search``."""
         self._cache = None
         self._ring = None
         self.t_labels = self.t_degrees = self.t_vde = None
@@ -1343,6 +1348,9 @@ class StreamedPESearch(_TableLayout):
                 os.unlink(tp)
             except OSError:
                 pass
+        if self._owned_dir is not None:
+            d, self._owned_dir = self._owned_dir, None
+            shutil.rmtree(d, ignore_errors=True)
 
     def _check_open(self) -> None:
         if self._host_vids is None:

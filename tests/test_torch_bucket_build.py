@@ -226,7 +226,11 @@ def test_build_streamed_from_chunks(case, tmp_path, disk):
     assert timings["table_memmap"] == disk
     assert (timings["spilled_bytes"] == len(paths) * (3 * 4 + 8)) == disk
     if disk:
-        assert os.listdir(spill_dir) == [f"leaf_table_{os.getpid()}.bin"]
+        # The build's own directory, holding the table alone.
+        (own,) = os.listdir(spill_dir)
+        assert own.startswith("spill_")
+        assert idx._owned_dir == os.path.join(spill_dir, own)
+        assert os.listdir(idx._owned_dir) == ["leaf_table.bin"]
         idx.close()
         assert os.listdir(spill_dir) == []
     with pytest.raises(ValueError, match="announced"):
@@ -258,6 +262,68 @@ def test_many_workers_on_shared_tables(case, tmp_path):
     _assert_same_index(port, mono)
     _assert_same_index(idx, mono)
     port.close()
+
+
+def _candidates(idx, g, seeds):
+    out = []
+    for s in seeds:
+        qg = sample_query(g, 6, seed=s)
+        qp, _ = enumerate_paths(qg, np.arange(qg.num_vertices), 3,
+                                dedup=True)
+        q_pde, weight, _ = gen_query_pde_table(gen_vde(qg, 2), qp)
+        plan = greedy_path_cover(qp, weight, qg.num_vertices)
+        out.append(idx.search(PEQuery(q_pde, plan, qg.num_vertices)))
+    return out
+
+
+def test_two_builds_share_a_spill_dir(case, ties, tmp_path):
+    """Two disk-tier builds into one directory in one process, the first
+    still open (the ladder's A/B build; ranks under one launcher): each
+    writes only into a directory of its own, so the second leaves the
+    first's table as it was, and closing both leaves the directory as
+    it was found."""
+    g1, order1, paths1, vertices1, _ = ties
+    g2, order2, paths2, vertices2, _ = case
+    spill = tmp_path / "spill"
+    first, t1 = build_streamed_from_chunks(
+        _chunks(paths1), len(paths1), g1, order1, 3, vertices1, "cpu",
+        block_size=BLOCK, spill_dir=str(spill), cache=False)
+    before = _candidates(first, g1, range(4))
+    assert sum(len(c) for q in before for c in q) > 0
+    second, t2 = build_streamed_from_chunks(
+        _chunks(paths2), len(paths2), g2, order2, 3, vertices2, "cpu",
+        block_size=BLOCK, spill_dir=str(spill), cache=False)
+    assert t1["table_memmap"] and t2["table_memmap"]
+    assert first._host_vids.nbytes < second._host_vids.nbytes
+    after = _candidates(first, g1, range(4))
+    assert all(np.array_equal(a, b) for qa, qb in zip(before, after)
+               for a, b in zip(qa, qb))
+    dirs = sorted(os.listdir(spill))
+    assert len(dirs) == 2 and all(d.startswith("spill_") for d in dirs)
+    assert sorted([first._owned_dir, second._owned_dir]) == [
+        str(spill / d) for d in dirs]
+    for idx in (first, second):
+        assert os.listdir(idx._owned_dir) == ["leaf_table.bin"]
+        assert idx._host_vids.filename == os.path.join(idx._owned_dir,
+                                                        "leaf_table.bin")
+    first.close()
+    assert os.listdir(spill) == [os.path.basename(second._owned_dir)]
+    second.close()
+    assert os.listdir(spill) == []
+
+
+def test_a_failed_build_removes_its_directory(case, tmp_path):
+    g, order, paths, vertices, _ = case
+    spill = tmp_path / "spill"
+    with pytest.raises(ValueError, match="announced"):
+        build_streamed_from_chunks(_chunks(paths[:500]), 501, g, order, 3,
+                                   vertices, "cpu", spill_dir=str(spill))
+    assert os.listdir(spill) == []
+    blocked = tmp_path / "a_file"
+    blocked.write_text("")
+    with pytest.raises(OSError):
+        build_streamed_from_chunks(_chunks(paths), len(paths), g, order, 3,
+                                   vertices, "cpu", spill_dir=str(blocked))
 
 
 def test_no_spill_dir_and_no_room_raises(case, monkeypatch):

@@ -140,3 +140,142 @@ def test_main_writes_rows_only_where_told(tmp_path, monkeypatch, capsys):
     with pytest.raises(SystemExit):
         ladder.main(["--dataset", "yeast"])      # --device is required
     assert np.isfinite(lines[0]["online_p50_ms"])
+
+
+# ---- the streamed tier's options: disk tier, pool, resident budget ----
+
+TINY_RAM = 1e6      # host memory a yeast streamed build must spill past
+
+
+@pytest.fixture(scope="module")
+def in_memory_streamed():
+    (row,) = ladder.run_rung("yeast", queries=4, force_streamed=True,
+                             pe_only=True, prefill_seconds=5, device="cpu")
+    return row
+
+
+@pytest.fixture
+def tiny_host(monkeypatch):
+    from gnnpe_tpu_torch.index import bucket_build
+    monkeypatch.setattr(bucket_build, "host_ram_bytes", lambda: TINY_RAM)
+
+
+def test_streamed_past_host_memory_needs_a_spill_dir(tiny_host):
+    with pytest.raises(MemoryError, match="spill_dir"):
+        ladder.run_rung("yeast", queries=2, force_streamed=True,
+                        pe_only=True, serve=False, device="cpu")
+
+
+def test_disk_tier_row_equals_in_memory_and_resident(rows, in_memory_streamed,
+                                                     tiny_host, tmp_path):
+    spill = tmp_path / "spill"
+    (row,) = ladder.run_rung("yeast", queries=4, force_streamed=True,
+                             pe_only=True, prefill_seconds=5,
+                             spill_dir=str(spill), device="cpu")
+    assert row["mode"] == row["pipeline"]["mode"] == "streamed"
+    assert row["pipeline"]["spilled_bytes"] > 0
+    assert row["pipeline"]["table_memmap"] is True
+    assert row["spot_verified"] and row["spot_verified_p90"]
+    assert "error" not in row["serving"]
+    for want in (in_memory_streamed, rows[0]):
+        for k in ("paths", "num_blocks", "candidates", "mean_answers"):
+            assert row[k] == want[k], k
+    assert in_memory_streamed["pipeline"]["spilled_bytes"] == 0
+    assert row["spill_dir"] == str(spill) and row["cache"] is True
+    assert row["spill_dir_bytes_left"] == 0 and os.listdir(spill) == []
+    assert in_memory_streamed["spill_dir_bytes_left"] is None
+
+
+def test_resident_budget_and_a_small_pool(rows, tiny_host, tmp_path):
+    """A resident budget under the table makes the rule (no flag) choose
+    streamed; a pool of 20 blocks misses, and no pool at all gives the
+    same candidates through per-chunk uploads."""
+    table_bytes = rows[0]["num_blocks"] * 512 * 3 * 4
+    block_bytes = 512 * 3 * 4
+    spill = tmp_path / "spill"
+    (pooled,) = ladder.run_rung(
+        "yeast", queries=4, pe_only=True, prefill_seconds=5,
+        spill_dir=str(spill), cache_bytes=20 * block_bytes,
+        resident_budget_bytes=table_bytes - 1, device="cpu")
+    assert pooled["mode"] == pooled["pipeline"]["mode"] == "streamed"
+    assert pooled["pipeline"]["rule_need_bytes"] > 0
+    assert pooled["pipeline"]["rule_free_bytes"] > 0
+    assert pooled["resident_budget_bytes"] == table_bytes - 1
+    assert pooled["cache_bytes"] == 20 * block_bytes
+    assert pooled["pool_blocks"] == 20
+    assert pooled["cache_misses_sum"] > 0
+    assert pooled["cache_misses_p90"] >= pooled["cache_misses_p50"] >= 0
+    assert pooled["uploaded_bytes_sum"] > 0
+    assert pooled["candidates"] == rows[0]["candidates"]
+    assert pooled["mean_answers"] == rows[0]["mean_answers"]
+    assert pooled["spot_verified"] and pooled["spot_verified_p90"]
+    assert pooled["spill_dir_bytes_left"] == 0 and os.listdir(spill) == []
+    (uncached,) = ladder.run_rung(
+        "yeast", queries=4, pe_only=True, serve=False, spill_dir=str(spill),
+        cache=False, resident_budget_bytes=table_bytes - 1, device="cpu")
+    assert uncached["mode"] == "streamed" and uncached["cache"] is False
+    assert uncached["pool_blocks"] == 0
+    assert uncached["cache_misses_sum"] is None
+    assert uncached["uploaded_bytes_p50"] > 0
+    assert uncached["candidates"] == rows[0]["candidates"]
+    assert uncached["spot_verified"] and uncached["spill_dir_bytes_left"] == 0
+    # A budget that holds the table leaves the rung resident.
+    (resident,) = ladder.run_rung(
+        "yeast", queries=2, pe_only=True, serve=False,
+        resident_budget_bytes=table_bytes, device="cpu")
+    assert resident["mode"] == resident["pipeline"]["mode"] == "resident"
+    assert resident["pool_blocks"] is None
+
+
+def test_sequential_build_honours_the_resident_budget(rows, tiny_host,
+                                                      tmp_path):
+    table_bytes = rows[0]["num_blocks"] * 512 * 3 * 4
+    (row,) = ladder.run_rung(
+        "yeast", queries=2, pe_only=True, serve=False, pipelined=False,
+        spill_dir=str(tmp_path), resident_budget_bytes=table_bytes - 1,
+        device="cpu")
+    assert row["mode"] == "streamed" and row["pipeline"] is None
+    assert row["candidates"] == rows[0]["candidates"][:2]
+    assert row["spill_dir_bytes_left"] == 0 and os.listdir(tmp_path) == []
+
+
+def test_main_passes_the_streamed_tier_on(monkeypatch, capsys):
+    seen = []
+    monkeypatch.setattr(ladder, "run_rung",
+                        lambda name, **kw: seen.append((name, kw)) or [])
+    ladder.main(["--dataset", "youtube,patents", "--device", "cpu",
+                 "--spill-dir", "/some/dir", "--cache-bytes", "2.5e8",
+                 "--no-cache", "--resident-budget-bytes", "5.6e9"])
+    assert [name for name, _ in seen] == ["youtube", "patents"]
+    for _, kw in seen:
+        assert kw["spill_dir"] == "/some/dir"
+        assert kw["cache_bytes"] == 2.5e8 and kw["cache"] is False
+        assert kw["resident_budget_bytes"] == 5.6e9
+    ladder.main(["--dataset", "yeast", "--device", "cpu"])
+    kw = seen[-1][1]
+    assert kw["spill_dir"] is None and kw["cache_bytes"] is None
+    assert kw["cache"] is True and kw["resident_budget_bytes"] is None
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == []
+
+
+def test_disk_tier_row_as_gnnpe_tpus(tiny_host, tmp_path, monkeypatch):
+    """gnnpe_tpu spills by itself past its share of host memory
+    (``GNNPE_HOST_RAM_BYTES``, into ``GNNPE_SPILL_DIR``); the port where
+    it is told to: the same rung, mode and answers, both spilled."""
+    from gnnpe_tpu.frontends.ladder import run_rung as jax_run_rung
+    monkeypatch.setenv("GNNPE_SPILL_DIR", str(tmp_path / "jspill"))
+    monkeypatch.setenv("GNNPE_HOST_RAM_BYTES", str(TINY_RAM))
+    (theirs,) = jax_run_rung("yeast", queries=4, force_streamed=True,
+                             pe_only=True, prefill_seconds=5)
+    (ours,) = ladder.run_rung("yeast", queries=4, force_streamed=True,
+                              pe_only=True, prefill_seconds=5,
+                              spill_dir=str(tmp_path / "spill"),
+                              device="cpu")
+    for k in ("paths", "mode", "mean_answers", "l", "queries"):
+        assert ours[k] == theirs[k], k
+    assert theirs["mode"] == "streamed"
+    assert theirs["pipeline"]["spilled_to_disk"] is True
+    assert ours["pipeline"]["spilled_bytes"] > 0
+    assert theirs["pipeline"]["table_memmap"] \
+        == ours["pipeline"]["table_memmap"] is True
+    assert ours["spot_verified"] and theirs["spot_verified"]
