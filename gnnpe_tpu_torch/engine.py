@@ -57,6 +57,7 @@ from gnnpe_tpu_torch.parallel.query import ShardedPESearch, ShardedPGESearch
 from gnnpe_tpu_torch.paths.device_enumerate import enumerate_dedup_device
 from gnnpe_tpu_torch.paths.enumerate import enumerate_paths
 from gnnpe_tpu_torch.utils.device import as_device
+from gnnpe_tpu_torch.utils.profiling import annotate
 from gnnpe_tpu_torch.utils.timers import StageTimer
 
 
@@ -179,11 +180,18 @@ class _Engine:
         """Batched serving: all queries' rows stack into one search
         (query-vertex ids offset into one disjoint space), then the
         candidates split per query for ``preverify`` rounds of pruning
-        (as in ``online``) and refinement."""
+        (as in ``online``) and refinement.  Each result's
+        ``timings_ms`` holds ``query_plan``, ``search``, [``preverify``],
+        ``refine``, as ``online``'s does; its ``query_plan`` and
+        ``search`` are the batch's, the same in every result."""
         if self.searcher is None:
             raise RuntimeError("call attach_device() before online_many()")
-        query = self._stack([self._query_table(qg) for qg in query_graphs])
-        cands_all = self.searcher.search(query, union=union)
+        t = StageTimer(self.device)
+        with t.stage("query_plan"):
+            query = self._stack([self._query_table(qg)
+                                 for qg in query_graphs])
+        with t.stage("search"):
+            cands_all = self.searcher.search(query, union=union)
         per_query, base = [], 0
         for qg in query_graphs:
             per_query.append(cands_all[base:base + qg.num_vertices])
@@ -191,23 +199,22 @@ class _Engine:
         prune = ((lambda qg, c: self._prune(qg, c, preverify))
                  if preverify else None)
         return _refine_batch(self.graph, query_graphs, per_query,
-                             self.config.max_answers, engine, prune)
+                             self.config.max_answers, engine, prune,
+                             t.times_ms)
 
 
 def _refine_batch(graph, query_graphs, per_query_cands, max_answers,
-                  engine, prune=None) -> List[MatchResult]:
+                  engine, prune, shared_ms: dict) -> List[MatchResult]:
     """The tail of ``online_many``: ``prune(query, candidates)`` per
     query where one is given (timed as ``preverify``; it returns host
     arrays, so the device has finished), then refinement per query,
     threaded when the native engine runs (its ctypes call releases the
-    GIL)."""
+    GIL).  Every query's timings start from ``shared_ms``, the batch's
+    stages.  The calling thread holds a ``refine`` range over both
+    steps: the profiler records no range that a pool thread opens."""
     timers = [StageTimer() for _ in query_graphs]
-    if prune is not None:
-        pruned = []
-        for t, qg, c in zip(timers, query_graphs, per_query_cands):
-            with t.stage("preverify"):
-                pruned.append(prune(qg, c))
-        per_query_cands = pruned
+    for t in timers:
+        t.times_ms.update(shared_ms)
 
     def one(qg, cands, t):
         with t.stage("refine"):
@@ -216,13 +223,20 @@ def _refine_batch(graph, query_graphs, per_query_cands, max_answers,
         return MatchResult(answer_count=int(count), candidates=cands,
                            timings_ms=t.times_ms)
 
-    if engine != "python" and len(query_graphs) > 1:
-        with ThreadPoolExecutor(max_workers=min(8, len(query_graphs))) \
-                as pool:
-            return list(pool.map(one, query_graphs, per_query_cands,
-                                 timers))
-    return [one(qg, c, t)
-            for qg, c, t in zip(query_graphs, per_query_cands, timers)]
+    with annotate("refine"):
+        if prune is not None:
+            pruned = []
+            for t, qg, c in zip(timers, query_graphs, per_query_cands):
+                with t.stage("preverify"):
+                    pruned.append(prune(qg, c))
+            per_query_cands = pruned
+        if engine != "python" and len(query_graphs) > 1:
+            with ThreadPoolExecutor(
+                    max_workers=min(8, len(query_graphs))) as pool:
+                return list(pool.map(one, query_graphs, per_query_cands,
+                                     timers))
+        return [one(qg, c, t)
+                for qg, c, t in zip(query_graphs, per_query_cands, timers)]
 
 
 class PEEngine(_Engine):

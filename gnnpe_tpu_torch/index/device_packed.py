@@ -45,6 +45,18 @@ one protocol,
     extracted on the host; "device": a bool bitmap [nq, V] is written
     with index_put_ of True, which is idempotent and so deterministic.
 
+Each search times four spans on the host clock, each also a profiler
+range (``search.filter``: phase 1, the prune and the selection;
+``search.phase2``: the chunks' gathers, leaf tests and hit columns, and
+on the device union their scatter; ``search.copy``: the host union's
+copies of each chunk's hit mask and rows; ``search.extract``: the
+union, the hits' concatenation and extraction or the bitmap's copy, and
+on a sharded index the wait in the union's collective).
+Their edges fall on calls that wait for the device anyway, so they add
+no synchronisation.  ``last_stats`` holds their ms (``filter_ms``,
+``phase2_ms``, ``copy_ms``, ``extract_ms``) beside the counters
+``hit_rows`` and ``copied_bytes`` of those copies.
+
 Every leaf decision is a native f64 compare against thresholds computed
 on the host with ``eps_threshold``, so candidate sets equal the f64 host
 filter.  Table-mode summaries are outward-rounded f32 (gnnpe_tpu's
@@ -789,7 +801,9 @@ class _PackedSearch:
         index this is a collective call that returns the same lists on
         every rank: the local part over the rank's blocks, one
         collective (the bitmaps' OR, or the gathered candidate lists'
-        union), and the same finish."""
+        union), and the same finish.  ``last_stats`` holds this call's
+        counters and its spans' ms (the module's docstring), or None
+        where the query has no rows or this rank holds no block."""
         if union not in ("host", "device"):
             raise ValueError(f"union must be 'host' or 'device', "
                              f"got {union!r}")
@@ -797,7 +811,19 @@ class _PackedSearch:
         self.last_stats = None
         if q.rows == 0 or q.num_out == 0:       # the same on every rank
             return [np.zeros(0, dtype=np.int64) for _ in range(q.num_out)]
-        local = self._search_local(q, union)
+        spans = StageTimer()        # no device: its edges never synchronise
+        local = self._search_local(q, union, spans)
+        with spans.stage("search.extract"):
+            out = self._union(q, local, union)
+        if self.last_stats is not None:
+            self.last_stats.update(
+                {f"{s}_ms": spans.times_ms.get(f"search.{s}", 0.0)
+                 for s in ("filter", "phase2", "copy", "extract")})
+        return out
+
+    def _union(self, q, local, union: str) -> List[np.ndarray]:
+        """The candidate lists from ``_search_local``'s result, through
+        the union's collective on a sharded index."""
         if union == "device":
             if local is None and self.group is not None:
                 local = torch.zeros((q.num_out, self.num_vertices),
@@ -812,25 +838,30 @@ class _PackedSearch:
                  if local is None else self._extract(q, *local))
         return union_candidates(cands, self.group)
 
-    def _search_local(self, q, union: str):
+    def _search_local(self, q, union: str, spans: StageTimer):
         """Phase 1, the range prune and phase 2 over the blocks held
-        here: the bool bitmap [nq, V] on the device (union "device"),
-        the host hits (mask bool[Q, H], rows int64[H]) for ``_extract``
-        (union "host"), or None where no block survives.  No collective
-        in here: the chunk loop's length differs from rank to rank."""
+        here, timed in ``spans``: the bool bitmap [nq, V] on the device
+        (union "device"), the host hits (mask bool[Q, H], rows int64[H])
+        for ``_extract`` (union "host"), or None where no block survives.
+        The hits are concatenated here, timed as ``search.extract``, so
+        that the chunks' copies are freed before the extraction.  No
+        collective in here: the chunk loop's length differs from rank to
+        rank."""
         if self.num_blocks == 0:
             return None
         nb, b = self.num_blocks, self.block_size
-        step = max(1, CHUNK_ELEMS // (q.rows * self.width))
-        bmask = torch.cat([self._phase1(q, lo, min(lo + step, nb))
-                           for lo in range(0, nb, step)], dim=1)
-        phase1 = int(bmask.any(0).sum())
-        bmask = self._prune(q, bmask)
-        sel = torch.nonzero(bmask.any(0)).squeeze(1)
+        with spans.stage("search.filter"):
+            step = max(1, CHUNK_ELEMS // (q.rows * self.width))
+            bmask = torch.cat([self._phase1(q, lo, min(lo + step, nb))
+                               for lo in range(0, nb, step)], dim=1)
+            phase1 = int(bmask.any(0).sum())
+            bmask = self._prune(q, bmask)
+            sel = torch.nonzero(bmask.any(0)).squeeze(1)
         k = self._chunk_limit(max(1, CHUNK_ELEMS // (q.rows * b * self.width)))
         n_sel = sel.numel()
-        self.last_stats = dict(blocks=nb, phase1=phase1, survived=n_sel,
-                               chunks=-(-n_sel // k))
+        st = self.last_stats = dict(blocks=nb, phase1=phase1, survived=n_sel,
+                                    chunks=-(-n_sel // k), hit_rows=0,
+                                    copied_bytes=0)
         if n_sel == 0:
             return None
         offs = torch.arange(b, device=self.device)
@@ -839,21 +870,26 @@ class _PackedSearch:
                                  dtype=torch.bool, device=self.device)
         masks, hit_rows = [], []
         for lo in range(0, n_sel, k):
-            blk = sel[lo:lo + k]
-            rows = (blk[:, None] * b + offs[None]).reshape(-1)
-            vids = self._chunk_vids(blk, rows)
-            m = (self._leaf_mask(q, rows, vids)
-                 & bmask[:, blk].repeat_interleave(b, dim=1))
-            if union == "device":
-                qi, col = torch.nonzero(m, as_tuple=True)
-                self._scatter(bitmap, q, qi, vids[col])
-            else:
+            with spans.stage("search.phase2"):
+                blk = sel[lo:lo + k]
+                rows = (blk[:, None] * b + offs[None]).reshape(-1)
+                vids = self._chunk_vids(blk, rows)
+                m = (self._leaf_mask(q, rows, vids)
+                     & bmask[:, blk].repeat_interleave(b, dim=1))
+                if union == "device":
+                    qi, col = torch.nonzero(m, as_tuple=True)
+                    self._scatter(bitmap, q, qi, vids[col])
+                    continue
                 hit = torch.nonzero(m.any(0)).squeeze(1)
+            with spans.stage("search.copy"):
                 masks.append(m[:, hit].cpu().numpy())
                 hit_rows.append(rows[hit].cpu().numpy())
+            st["hit_rows"] += len(hit_rows[-1])
+            st["copied_bytes"] += masks[-1].nbytes + hit_rows[-1].nbytes
         if union == "device":
             return bitmap
-        return np.concatenate(masks, axis=1), np.concatenate(hit_rows)
+        with spans.stage("search.extract"):
+            return np.concatenate(masks, axis=1), np.concatenate(hit_rows)
 
 
 class _PESearch(_PackedSearch):

@@ -164,9 +164,11 @@ def test_online_many_preverify_equals_jax(graphs, engines, variant):
         _same(a.candidates, b.candidates)
         _same(a.candidates, c.candidates)
         assert a.answer_count == b.answer_count == c.answer_count
-        assert list(a.timings_ms) == ["preverify", "refine"]
+        assert list(a.timings_ms) == ["query_plan", "search", "preverify",
+                                      "refine"]
     off = port.online_many(queries, union="device")
-    assert all(list(r.timings_ms) == ["refine"] for r in off)
+    assert all(list(r.timings_ms) == ["query_plan", "search", "refine"]
+               for r in off)
     # One query, and the python engine, take the unthreaded path.
     one = port.online_many(queries[:1], engine="python", preverify=2)
     assert one[0].answer_count == got[0].answer_count

@@ -60,6 +60,36 @@ def test_engine_stages_are_ranges(tmp_path):
     assert stages <= _names(prof.trace_path)
 
 
+def test_online_many_stages_are_ranges_on_the_calling_thread(tmp_path):
+    """``online_many``'s stages are ranges on the thread that called it,
+    refinement's too though its queries run in pool threads, and the
+    search's four spans lie inside its ``search`` ranges."""
+    import threading
+    g = powerlaw_graph(300, 1200, 4, seed=2, max_degree=40)
+    qs = [sample_query(g, 4, seed=s) for s in range(3)]
+    eng = PGEEngine(PGEConfig.from_cli(l=2, e=2), g, "cpu").offline()
+    eng.build_index(block_size=16).attach_device("cpu")
+    with profiling.trace(str(tmp_path), "cpu") as prof:
+        rs = eng.online_many(qs)
+    assert all(list(r.timings_ms) == ["query_plan", "search", "refine"]
+               for r in rs)
+    with open(prof.trace_path) as f:
+        data = json.load(f)
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    ranges = [ev for ev in events if ev.get("cat") == "user_annotation"]
+    me = threading.get_native_id()
+    here = {ev["name"] for ev in ranges if ev["tid"] == me}
+    assert {"query_plan", "search", "refine"} <= here
+    search = [ev for ev in ranges if ev["name"] == "search"]
+    spans = [ev for ev in ranges if ev["name"].startswith("search.")]
+    assert {ev["name"] for ev in spans} == {
+        "search.filter", "search.phase2", "search.copy", "search.extract"}
+    for ev in spans:
+        assert any(s["tid"] == ev["tid"] and s["ts"] <= ev["ts"]
+                   and ev["ts"] + ev["dur"] <= s["ts"] + s["dur"]
+                   for s in search), ev["name"]
+
+
 def test_stage_timer_total_and_repr():
     ours, theirs = StageTimer(), jax_timers.StageTimer()
     for t in (ours, theirs):
