@@ -5,8 +5,8 @@
 
 1. Requires a CUDA device and prints the card's name and power limit.
 2. Builds the CUDA kernels from gnnpe_tpu_torch/csrc (A1 spmm_csr, A2
-   ell_gather_sum and the readout's segment_sum; and the host C++
-   refinement engine).
+   ell_gather_sum, the readout's segment_sum and the search's
+   union_bitmap; and the host C++ refinement engine).
 3. Kernel phase: the neighbour-sum SpMM (A1) against its plain PyTorch
    version on the card, on the dblp-rung graph — f64 at the VDE width
    (D=2), f32 at D=128 and f32 at D=8 on a 0/1 matrix (the pre-verify's
@@ -38,6 +38,15 @@
    by wall clock; and the two PE layouts' ``search`` times are compared
    on 64 more queries (seeds 100-163), in turns array, table, table,
    array, each union, with equal candidates required.
+   Union phase, on the table index: the union_bitmap scatters of one
+   online search and of the 8 queries' stacked search, recorded as the
+   search launches them (at most 64 chunks a search), replayed through
+   the kernel and ``scatter_plain`` on the card — words and hit rows
+   bit-equal — and compacted by ``compact`` against ``compact_plain``;
+   timed in turns plain, kernel, kernel, plain by CUDA events beside the
+   bytes bound.  Every engine phase sets the union's launch count to 0
+   before its searches and holds it to the launches that its
+   device-union searches' ``last_stats`` account for.
    PE streamed phase: the same index served past device memory.  The
    card would hold the table many times over, so the phase forces
    ``build_index(table=True, resident=False)``: the bucketed build on
@@ -252,7 +261,7 @@ QUERY_SEEDS = range(8)
 QUERY_SIZE = 8
 MODE_QUERIES = range(100, 164)   # the PE layouts' search comparison
 BLOCK_SIZE = 512
-KERNELS = ("spmm_csr", "ell_gather_sum", "segment_sum")
+KERNELS = ("spmm_csr", "ell_gather_sum", "segment_sum", "union_bitmap")
 PREVERIFY_ROUNDS = 2
 # The streamed phase's block pool: about a quarter of the dblp index's
 # 118,711 blocks, so that misses, hits and evictions all happen.
@@ -475,10 +484,27 @@ def _percentiles(vals):
             "p90": float(np.percentile(vals, 90))}
 
 
+def _union_launches(prefix, stats) -> int:
+    """The union_bitmap launches that one device-union search made, from
+    its ``last_stats``: a scatter a phase-2 chunk, the count and scan,
+    and the write where any id came out; none where no block survived
+    (or the query had no rows, and no stats)."""
+    if stats is None:
+        return 0
+    check(stats["union"] == "device",
+          f"{prefix}: a device-union search ran the {stats['union']} union")
+    if stats["survived"] == 0:
+        return 0
+    return stats["chunks"] + 2 + (stats["cand_ids"] > 0)
+
+
 def _drive(eng, queries, device, wall, prefix, block_size, offline_kw,
            build_kw):
     """The main path: offline (unless the engine was handed its paths),
-    index, upload, online x N, online_many."""
+    index, upload, online x N under both unions, online_many.  Returns
+    the runs, each query's surviving blocks, and the union_bitmap
+    launches that the device-union searches' ``last_stats`` account
+    for."""
     with wall.stage(f"{prefix}.offline"):
         if getattr(eng, "paths", None) is None:
             eng.offline(**offline_kw)
@@ -487,17 +513,19 @@ def _drive(eng, queries, device, wall, prefix, block_size, offline_kw,
     with wall.stage(f"{prefix}.attach_device"):
         eng.attach_device(device)
     runs = {"online": [], "online_device_union": []}
-    survived = []
+    survived, union = [], 0
     for q in queries:
-        runs["online"].append(eng.online(q))
+        runs["online"].append(eng.online(q, union="host"))
         survived.append(eng.searcher.last_stats["survived"])
         runs["online_device_union"].append(eng.online(q, union="device"))
+        union += _union_launches(prefix, eng.searcher.last_stats)
     with wall.stage(f"{prefix}.online_many"):
         runs["online_many"] = eng.online_many(queries, union="device")
-    return runs, survived
+    union += _union_launches(prefix, eng.searcher.last_stats)
+    return runs, survived, union
 
 
-def _summarise(prefix, eng, runs, survived, wall, launches,
+def _summarise(prefix, eng, runs, survived, wall, launches, union_launches,
                record) -> None:
     tensors = eng.searcher.resident_tensors()
     devices = sorted({str(t.device) for t in tensors.values()})
@@ -517,6 +545,7 @@ def _summarise(prefix, eng, runs, survived, wall, launches,
         index_bytes=int(sum(t.numel() * t.element_size()
                             for t in tensors.values())),
         index_devices=devices, spmm_launches=launches,
+        union_launches=union_launches,
         answers=[r.answer_count for r in single],
         candidates=[int(sum(map(len, r.candidates))) for r in single])
     if hasattr(eng, "paths"):
@@ -529,17 +558,23 @@ def _summarise(prefix, eng, runs, survived, wall, launches,
 
 def _engine_phase(prefix, eng, queries, device, record, block_size,
                   offline_kw=None, build_kw=None):
-    """Runs ``_drive`` with the kernel's launch count set to 0 just
-    before and read just after; returns (runs, launches)."""
-    from gnnpe_tpu_torch.ops import spmm
+    """Runs ``_drive`` with the launch counts of spmm_csr and of the
+    union's kernels set to 0 just before and read just after; records
+    the union's as ``union_launches``, held to what the device-union
+    searches account for.  Returns (runs, spmm_csr launches)."""
+    from gnnpe_tpu_torch.ops import spmm, union_bitmap
     from gnnpe_tpu_torch.utils.timers import StageTimer
     wall = StageTimer(device)
-    spmm.LAUNCHES = 0
-    runs, survived = _drive(eng, queries, device, wall, prefix, block_size,
-                            offline_kw or {}, build_kw or {})
-    launches = spmm.LAUNCHES
-    _summarise(prefix, eng, runs, survived, wall, launches, record)
+    spmm.LAUNCHES = union_bitmap.LAUNCHES = 0
+    runs, survived, union_want = _drive(
+        eng, queries, device, wall, prefix, block_size, offline_kw or {},
+        build_kw or {})
+    launches, union = spmm.LAUNCHES, union_bitmap.LAUNCHES
+    _summarise(prefix, eng, runs, survived, wall, launches, union, record)
     check(launches > 0, f"{prefix} phase launched no spmm_csr kernel")
+    check(union == union_want > 0,
+          f"{prefix} phase: {union} union_bitmap launches, its "
+          f"device-union searches account for {union_want}")
     check(record[prefix]["index_devices"] == [str(eng.searcher.device)],
           f"{prefix} index tensors on {record[prefix]['index_devices']}")
     return runs, launches
@@ -880,6 +915,109 @@ def _stream_pass(name, g_tables, table, idx, union="device",
         evictions=cache.evictions if cache else 0,
         pool_blocks=cache.capacity if cache else 0,
         pool_bytes=int(cache.buf.numel() * 4) if cache else 0)
+
+
+UNION_REPLAY_CHUNKS = 64      # the chunks of a search that are replayed
+
+
+def union_phase(eng, queries, device, record) -> dict:
+    """The union's kernels at the table index's main-path shapes: the
+    scatters of one online search (query 0) and of the stacked search of
+    every query, recorded as the search launches them (its first
+    ``UNION_REPLAY_CHUNKS`` chunks), replayed through
+    ``union_bitmap.scatter`` and ``scatter_plain`` on the same inputs on
+    the card, bit for bit, then ``compact`` against ``compact_plain``;
+    where every chunk was replayed, the replay equals the search's lists
+    and hit rows.  Each is timed in turns by CUDA events, host path
+    included (a scatter replay zeroes the words first, as a search's
+    ``new_words`` does), beside its bytes bound: a scatter reads mask,
+    gate, vid rows and output ids once and writes the words once; the
+    compaction reads the words once and writes offsets and ids once.
+    Returns the kernels record's rows."""
+    import torch
+    from gnnpe_tpu_torch.ops import union_bitmap as ub
+    searcher, v = eng.searcher, eng.searcher.num_vertices
+    tables = {"online": eng._stack([eng._query_table(queries[0])]),
+              "batch": eng._stack([eng._query_table(q) for q in queries])}
+    rows, rec, inner = {}, {}, ub.scatter
+    for name, table in tables.items():
+        chunks = []
+
+        def keep(words, nv, mask, gate, vids, out_ids, hits):
+            if len(chunks) < UNION_REPLAY_CHUNKS:
+                chunks.append((mask.clone(), gate.clone(), vids.clone(),
+                               out_ids.clone()))
+            return inner(words, nv, mask, gate, vids, out_ids, hits)
+        ub.scatter = keep
+        try:
+            got = searcher.search(table, union="device")
+        finally:
+            ub.scatter = inner
+        stats, nq = dict(searcher.last_stats), len(got)
+        check(chunks, f"union {name}: the search scattered no chunk")
+        words = {k: ub.new_words(nq, v, device) for k in ("kernel", "plain")}
+        hits = {k: torch.zeros(1, dtype=torch.int64, device=device)
+                for k in words}
+
+        def scatter_all(how):
+            fn = ub.scatter if how == "kernel" else ub.scatter_plain
+            words[how].zero_()
+            hits[how].zero_()
+            for c in chunks:
+                fn(words[how], v, *c, hits[how])
+        for how in words:
+            scatter_all(how)
+        check(torch.equal(words["kernel"], words["plain"])
+              and int(hits["kernel"]) == int(hits["plain"]),
+              f"union {name}: the scatter kernel's words or hit rows differ "
+              "from scatter_plain's")
+        offsets, ids = ub.compact(words["kernel"], v)
+        want = ub.compact_plain(words["plain"].cpu(), v)
+        check(np.array_equal(offsets, want[0])
+              and np.array_equal(ids, want[1]),
+              f"union {name}: compact differs from compact_plain")
+        whole = len(chunks) == stats["chunks"]
+        check(not whole or (int(hits["kernel"]) == stats["hit_rows"] and all(
+            np.array_equal(a, b) for a, b in zip(ub.split(offsets, ids),
+                                                 got))),
+              f"union {name}: the replay differs from the search's union")
+        w = words["kernel"].shape[1]
+        in_bytes = sum(m.numel() + g.numel() + 4 * (i.numel() + o.numel())
+                       for m, g, i, o in chunks)
+        for part, fns, nbytes in (
+                ("scatter", (lambda: scatter_all("plain"),
+                             lambda: scatter_all("kernel")),
+                 in_bytes + 4 * nq * w),
+                ("compact", (lambda: ub.compact_plain(
+                    words["kernel"].cpu(), v),
+                    lambda: ub.compact(words["kernel"], v)),
+                 4 * nq * w + 8 * (nq + 1) + 4 * len(ids))):
+            plain, kern = fns
+            p1, k1, k2, p2 = (cuda_ms(plain, 3), cuda_ms(kern, 20),
+                              cuda_ms(kern, 20), cuda_ms(plain, 3))
+            row = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                       turns_ms=[p1, k1, k2, p2],
+                       bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
+                       bytes_moved=int(nbytes), library_ms=None,
+                       max_abs_err=0.0)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            rows[f"{name}_{part}"] = row
+            print(f"union {name} {part}: bit-equal to plain; kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms "
+                  f"(plain, kernel, kernel, plain = "
+                  + ", ".join(f"{t:.4f}" for t in row["turns_ms"])
+                  + f"); bound {row['bound_ms']:.5f} ms ({int(nbytes)} B): "
+                  f"{100 * row['share_of_bound']:.1f} % of it by events")
+        rec[name] = dict(query_vertices=nq, row_words=w,
+                         chunks=stats["chunks"], replayed=len(chunks),
+                         hit_rows=int(hits["kernel"]), ids=len(ids),
+                         search_hit_rows=stats["hit_rows"])
+        print(f"union {name}: {nq} query vertices x {w} words, "
+              f"{len(chunks)} of {stats['chunks']} chunks replayed, "
+              f"{int(hits['kernel'])} hit rows, {len(ids)} ids")
+        del chunks, words, hits
+    record["union"] = dict(rec, rows=rows)
+    return rows
 
 
 def pe_streamed_phase(g, queries, device, record, oracle, table_eng,
@@ -3204,6 +3342,8 @@ def main() -> int:
     launches += a1
     peak("pe_table", base)
     fresh("pe_table")
+    union_rows = union_phase(table_eng, queries, device, record)
+    fresh("union")
     launches += pe_streamed_phase(g, queries, device, record, pe_oracle,
                                   table_eng)
     del table_eng
@@ -3272,7 +3412,9 @@ def main() -> int:
         spmm_csr=launches,
         ell_gather_sum=(a2 + a2_streamed + a2_multi + a2_hier
                         + bench_launches[1]),
-        segment_sum=seg_train + seg_fit + seg_streamed + seg_multi)
+        segment_sum=seg_train + seg_fit + seg_streamed + seg_multi,
+        union_bitmap=sum(r["union_launches"] for r in record.values()
+                         if isinstance(r, dict) and "union_launches" in r))
     check(min(kernel_launches.values()) > 0,
           f"a kernel did not launch on the main paths: {kernel_launches}")
     foreign = sorted(m for m in sys.modules
@@ -3291,7 +3433,12 @@ def main() -> int:
                     "the port the readout's walk on the A2 kernel of "
                     "experiments/pallas_blocked_spmm.py:106",
                     kernel_launches["segment_sum"], seg_rows,
-                    "readout_paths_f32_d2")]}))
+                    "readout_paths_f32_d2"),
+        _kernel_row("union_bitmap", "none: the search's device union (an "
+                    "XLA scatter into a bool bitmap in gnnpe_tpu/index/"
+                    "device_packed.py, no Pallas kernel)",
+                    kernel_launches["union_bitmap"], union_rows,
+                    "online_scatter")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

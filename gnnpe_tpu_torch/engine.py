@@ -149,9 +149,12 @@ class _Engine:
         return self
 
     def online(self, query_graph: CSRGraph, engine: str = "native",
-               return_embeddings: bool = False, union: str = "host",
+               return_embeddings: bool = False, union: str = "device",
                preverify: int = 0) -> MatchResult:
-        """preverify: rounds of semi-join pruning of the candidates on
+        """union: the search's candidate union, "device" (the bitmap
+        built and compacted on the device) or "host" (the hit masks
+        copied back and extracted there); the same lists either way.
+        preverify: rounds of semi-join pruning of the candidates on
         the device before refinement (match/preverify.py), 0 = off.  PGE
         counts do not move with it; PE counts can, by design.
         return_embeddings: also the matches themselves, int32[N, |Vq|]
@@ -175,7 +178,7 @@ class _Engine:
                            timings_ms=t.times_ms, embeddings=emb)
 
     def online_many(self, query_graphs, engine: str = "native",
-                    union: str = "host",
+                    union: str = "device",
                     preverify: int = 0) -> List[MatchResult]:
         """Batched serving: all queries' rows stack into one search
         (query-vertex ids offset into one disjoint space), then the

@@ -41,21 +41,29 @@ one protocol,
     gated by per-(row, block) survival.  Blocks go in chunks sized so
     that the [Q, K·B, width] compare stays under ``CHUNK_ELEMS`` (and,
     streamed, within the cache pool).
-  union — "host": the hit columns come back and candidates are
-    extracted on the host; "device": a bool bitmap [nq, V] is written
-    with index_put_ of True, which is idempotent and so deterministic.
+  union — "device" (the default): each chunk's gated hits are OR-ed
+    into a bit-packed bitmap [nq, ⌈V/32⌉] on the device, without a wait
+    (ops/union_bitmap.py, the kernels of csrc/union_bitmap.cu), and the
+    bitmap is compacted there into each query vertex's sorted ids, which
+    come back in one copy; "host": the hit columns come back and
+    candidates are extracted on the host.
 
 Each search times four spans on the host clock, each also a profiler
 range (``search.filter``: phase 1, the prune and the selection;
-``search.phase2``: the chunks' gathers, leaf tests and hit columns, and
-on the device union their scatter; ``search.copy``: the host union's
-copies of each chunk's hit mask and rows; ``search.extract``: the
-union, the hits' concatenation and extraction or the bitmap's copy, and
-on a sharded index the wait in the union's collective).
-Their edges fall on calls that wait for the device anyway, so they add
-no synchronisation.  ``last_stats`` holds their ms (``filter_ms``,
-``phase2_ms``, ``copy_ms``, ``extract_ms``) beside the counters
-``hit_rows`` and ``copied_bytes`` of those copies.
+``search.phase2``: the chunks' gathers, leaf tests and hit columns, or
+on the device union their scatter and, last, the read of its hit
+counter; ``search.copy``: the host union's copies of each chunk's hit
+mask and rows; ``search.extract``: the union, the hits' concatenation
+and extraction, or the bitmap's compaction and the copies of its
+offsets and ids, and on a sharded index the wait in the union's
+collective).  Their edges fall on calls that wait for the device anyway,
+so they add no synchronisation.  ``last_stats`` holds their ms
+(``filter_ms``, ``phase2_ms``, ``copy_ms``, ``extract_ms``) beside the
+counters ``hit_rows`` (the columns with any gated hit, summed over
+chunks: on the device union the kernel counts them), ``copied_bytes``
+(what crosses to the host: the host union's masks and rows, or the
+device union's offsets and ids), ``union`` (which ran) and ``cand_ids``
+(the candidates returned, summed over query vertices).
 
 Every leaf decision is a native f64 compare against thresholds computed
 on the host with ``eps_threshold``, so candidate sets equal the f64 host
@@ -92,9 +100,9 @@ from gnnpe_tpu_torch.match.device_filter import (extract_candidates,
                                                  pe_mask_exact,
                                                  pge_mask_exact)
 from gnnpe_tpu_torch.match.filter import eps_threshold
+from gnnpe_tpu_torch.ops import union_bitmap
 from gnnpe_tpu_torch.parallel.collectives import (barrier, dist_rank,
-                                                  gather_objects,
-                                                  or_bitmaps_,
+                                                  gather_objects, or_words_,
                                                   union_candidates)
 from gnnpe_tpu_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
                                            shard_bounds)
@@ -716,8 +724,10 @@ class PGEQuery:
 
 class _PackedSearch:
     """The two-phase search shared by both variants.  Subclasses set
-    the fields below and supply ``_prepare``, ``_phase1``, ``_prune``,
-    ``_chunk_vids``, ``_leaf_mask``, ``_scatter`` and ``_extract``."""
+    the fields below and supply ``_prepare`` (whose query carries
+    ``out_ids``, int32 [Q, L']: the query vertex of each position of a
+    row), ``_phase1``, ``_prune``, ``_chunk_vids`` (a chunk's vertex ids
+    [K·B, L']), ``_leaf_mask`` and ``_extract``."""
 
     device: torch.device
     block_size: int
@@ -796,12 +806,12 @@ class _PackedSearch:
         self.block_range = (lo, hi)
         self.num_blocks = hi - lo
 
-    def search(self, query, union: str = "host") -> List[np.ndarray]:
+    def search(self, query, union: str = "device") -> List[np.ndarray]:
         """Sorted candidate vertex ids per query vertex.  On a sharded
         index this is a collective call that returns the same lists on
         every rank: the local part over the rank's blocks, one
-        collective (the bitmaps' OR, or the gathered candidate lists'
-        union), and the same finish.  ``last_stats`` holds this call's
+        collective (the packed bitmaps' OR, or the gathered candidate
+        lists' union), and the same finish.  ``last_stats`` holds this call's
         counters and its spans' ms (the module's docstring), or None
         where the query has no rows or this rank holds no block."""
         if union not in ("host", "device"):
@@ -819,6 +829,8 @@ class _PackedSearch:
             self.last_stats.update(
                 {f"{s}_ms": spans.times_ms.get(f"search.{s}", 0.0)
                  for s in ("filter", "phase2", "copy", "extract")})
+            self.last_stats.update(union=union,
+                                   cand_ids=sum(len(c) for c in out))
         return out
 
     def _union(self, q, local, union: str) -> List[np.ndarray]:
@@ -826,23 +838,25 @@ class _PackedSearch:
         the union's collective on a sharded index."""
         if union == "device":
             if local is None and self.group is not None:
-                local = torch.zeros((q.num_out, self.num_vertices),
-                                    dtype=torch.bool, device=self.device)
+                local = union_bitmap.new_words(q.num_out, self.num_vertices,
+                                               self.device)
             if local is None:
                 return [np.zeros(0, dtype=np.int64)
                         for _ in range(q.num_out)]
-            or_bitmaps_(local, self.group)
-            return [np.nonzero(r)[0].astype(np.int64)
-                    for r in local.cpu().numpy()]
+            or_words_(local, self.group)
+            offsets, ids = union_bitmap.compact(local, self.num_vertices)
+            if self.last_stats is not None:
+                self.last_stats["copied_bytes"] += offsets.nbytes + ids.nbytes
+            return union_bitmap.split(offsets, ids)
         cands = ([np.zeros(0, dtype=np.int64) for _ in range(q.num_out)]
                  if local is None else self._extract(q, *local))
         return union_candidates(cands, self.group)
 
     def _search_local(self, q, union: str, spans: StageTimer):
         """Phase 1, the range prune and phase 2 over the blocks held
-        here, timed in ``spans``: the bool bitmap [nq, V] on the device
-        (union "device"), the host hits (mask bool[Q, H], rows int64[H])
-        for ``_extract`` (union "host"), or None where no block survives.
+        here, timed in ``spans``: the packed bitmap on the device (union
+        "device"), the host hits (mask bool[Q, H], rows int64[H]) for
+        ``_extract`` (union "host"), or None where no block survives.
         The hits are concatenated here, timed as ``search.extract``, so
         that the chunks' copies are freed before the extraction.  No
         collective in here: the chunk loop's length differs from rank to
@@ -866,20 +880,22 @@ class _PackedSearch:
             return None
         offs = torch.arange(b, device=self.device)
         if union == "device":
-            bitmap = torch.zeros((q.num_out, self.num_vertices),
-                                 dtype=torch.bool, device=self.device)
+            words = union_bitmap.new_words(q.num_out, self.num_vertices,
+                                           self.device)
+            hits = torch.zeros(1, dtype=torch.int64, device=self.device)
         masks, hit_rows = [], []
         for lo in range(0, n_sel, k):
             with spans.stage("search.phase2"):
                 blk = sel[lo:lo + k]
                 rows = (blk[:, None] * b + offs[None]).reshape(-1)
                 vids = self._chunk_vids(blk, rows)
-                m = (self._leaf_mask(q, rows, vids)
-                     & bmask[:, blk].repeat_interleave(b, dim=1))
+                leaf, gate = self._leaf_mask(q, rows, vids), bmask[:, blk]
                 if union == "device":
-                    qi, col = torch.nonzero(m, as_tuple=True)
-                    self._scatter(bitmap, q, qi, vids[col])
+                    union_bitmap.scatter(
+                        words, self.num_vertices, leaf, gate,
+                        vids.reshape(len(rows), -1), q.out_ids, hits)
                     continue
+                m = leaf & gate.repeat_interleave(b, dim=1)
                 hit = torch.nonzero(m.any(0)).squeeze(1)
             with spans.stage("search.copy"):
                 masks.append(m[:, hit].cpu().numpy())
@@ -887,7 +903,9 @@ class _PackedSearch:
             st["hit_rows"] += len(hit_rows[-1])
             st["copied_bytes"] += masks[-1].nbytes + hit_rows[-1].nbytes
         if union == "device":
-            return bitmap
+            with spans.stage("search.phase2"):
+                st["hit_rows"] = int(hits)      # waits for the chunks
+            return words
         with spans.stage("search.extract"):
             return np.concatenate(masks, axis=1), np.concatenate(hit_rows)
 
@@ -911,7 +929,7 @@ class _PESearch(_PackedSearch):
             thresh=self._put(eps_threshold(t.pde[rows],
                                            self.base_epsilon)),
             pde_label=self._put(t.pde_label[rows]),
-            vids=vids, d_vids=self._put(vids).long())
+            vids=vids, out_ids=self._put(vids.astype(np.int32)))
 
     def _phase1(self, q, lo: int, hi: int) -> torch.Tensor:
         dom = (self.b_ub[None, lo:hi] >= q.thresh[:, None]).all(-1)
@@ -926,9 +944,6 @@ class _PESearch(_PackedSearch):
 
     def _chunk_vids(self, blk, rows) -> torch.Tensor:
         return self.d_vids[rows]
-
-    def _scatter(self, bitmap, q, qi, vids) -> None:
-        bitmap[q.d_vids[qi].reshape(-1), vids.long().reshape(-1)] = True
 
     def _extract(self, q, mask, rows) -> List[np.ndarray]:
         return extract_candidates(mask, self._host_vids[rows], q.vids,
@@ -1392,7 +1407,7 @@ class StreamedPESearch(_TableLayout):
         if self._host_vids is None:
             raise RuntimeError("this StreamedPESearch was closed")
 
-    def search(self, query, union: str = "host") -> List[np.ndarray]:
+    def search(self, query, union: str = "device") -> List[np.ndarray]:
         self._check_open()
         cache = self._ensure_cache()
         before = (cache.hits, cache.misses) if cache else None
@@ -1455,7 +1470,7 @@ class DevicePackedPGESearch(_PackedSearch):
         self.d_ghi = self._upload(index.group[:, 1, :], rows, 0.0)
         self.d_llo = self._upload(index.label_group[:, 0, :], rows, 0.0)
         self.d_lhi = self._upload(index.label_group[:, 1, :], rows, 0.0)
-        self.d_order = self._upload(index.order, rows, -1)
+        self.d_order = self._upload(index.order.astype(np.int32), rows, -1)
         self.b_gub = self._put(index.blk_group_ub)
         self.b_llo = self._put(index.blk_lgroup_lo)
         self.b_lhi = self._put(index.blk_lgroup_hi)
@@ -1489,7 +1504,9 @@ class DevicePackedPGESearch(_PackedSearch):
             glo=self._put(eps_threshold(query.group[:, 0, :],
                                         self.base_epsilon)),
             llo=self._put(query.label_group[:, 0, :]),
-            lhi=self._put(query.label_group[:, 1, :]))
+            lhi=self._put(query.label_group[:, 1, :]),
+            out_ids=torch.arange(len(query.labels), dtype=torch.int32,
+                                 device=self.device)[:, None])
 
     def _phase1(self, q, lo: int, hi: int) -> torch.Tensor:
         dom = (self.b_gub[None, lo:hi] >= q.glo[:, None]).all(-1)
@@ -1514,9 +1531,6 @@ class DevicePackedPGESearch(_PackedSearch):
                               self.d_ghi[rows], self.d_llo[rows],
                               self.d_lhi[rows], q.labels, q.degrees,
                               q.glo, q.llo, q.lhi)
-
-    def _scatter(self, bitmap, q, qi, vids) -> None:
-        bitmap[qi, vids] = True
 
     def _extract(self, q, mask, rows) -> List[np.ndarray]:
         vid_cols = self._order[rows]

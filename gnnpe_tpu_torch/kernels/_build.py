@@ -46,6 +46,19 @@ _SIGNATURES = {
     "segment_sum": {
         name: [_c.c_int] + [_c.c_void_p] * 3 + [_c.c_int] * 2 + [_c.c_void_p]
         for name in ("gnnpe_segment_sum_f32", "gnnpe_segment_sum_f64")},
+    # scatter: (device, mask, gate, vids, out_ids, words, hit_columns, cols,
+    #  rows, block_size, k, width, num_out, num_vertices, row_words, stream);
+    # offsets: (device, words, rows, row_words, seg_words, counts,
+    #  seg_offsets, offsets, stream); write: (device, words, rows,
+    #  row_words, seg_words, seg_offsets, ids, stream)
+    "union_bitmap": {
+        "gnnpe_union_scatter": [_c.c_int] + [_c.c_void_p] * 6
+        + [_c.c_longlong, _c.c_int, _c.c_longlong, _c.c_longlong]
+        + [_c.c_int] * 3 + [_c.c_longlong, _c.c_void_p],
+        "gnnpe_union_offsets": [_c.c_int, _c.c_void_p]
+        + [_c.c_longlong] * 3 + [_c.c_void_p] * 4,
+        "gnnpe_union_write": [_c.c_int, _c.c_void_p]
+        + [_c.c_longlong] * 3 + [_c.c_void_p] * 3},
 }
 
 

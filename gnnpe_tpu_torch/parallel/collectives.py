@@ -78,6 +78,20 @@ def or_bitmaps_(bitmap: torch.Tensor, group) -> torch.Tensor:
     return bitmap
 
 
+def or_words_(words: torch.Tensor, group) -> torch.Tensor:
+    """Bit-packed bitmaps (int32 words, ops/union_bitmap.py) OR-ed over
+    the group in place, exactly: every rank's words are all-gathered and
+    OR-ed here, word by word.  A MAX over the words' bytes would not be
+    an OR of packed bits, and NCCL has no bitwise-OR reduction."""
+    n = group_size(group)
+    if n == 1:
+        return words
+    parts = all_gather_rows(words, group).view(n, *words.shape)
+    for part in parts:
+        words |= part
+    return words
+
+
 def union_candidates(cands: List, group) -> List:
     """Per query vertex, the sorted union of every rank's sorted
     candidate ids (exact whatever the shard order)."""

@@ -172,6 +172,15 @@ def test_sharded_search(search_expected, tmp_path, n):
                    timeout_s=TIMEOUT_S, store_dir=str(tmp_path)), "search", n)
 
 
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_packed_or(tmp_path, n):
+    """The device union's bit-packed bitmaps OR-ed over n ranks equal
+    the unsharded search's (ops/union_bitmap.py, ``or_words_``)."""
+    _ran(run_ranks(n, "tests.torch_mp_worker:packed_or", {},
+                   group_device="cpu", timeout_s=TIMEOUT_S,
+                   store_dir=str(tmp_path)), "packed_or", n)
+
+
 # ---- aggregation -----------------------------------------------------------------
 
 @pytest.mark.parametrize("n", RANKS)

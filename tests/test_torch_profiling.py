@@ -63,14 +63,15 @@ def test_engine_stages_are_ranges(tmp_path):
 def test_online_many_stages_are_ranges_on_the_calling_thread(tmp_path):
     """``online_many``'s stages are ranges on the thread that called it,
     refinement's too though its queries run in pool threads, and the
-    search's four spans lie inside its ``search`` ranges."""
+    search's four spans (the host union's, which has all four) lie
+    inside its ``search`` ranges."""
     import threading
     g = powerlaw_graph(300, 1200, 4, seed=2, max_degree=40)
     qs = [sample_query(g, 4, seed=s) for s in range(3)]
     eng = PGEEngine(PGEConfig.from_cli(l=2, e=2), g, "cpu").offline()
     eng.build_index(block_size=16).attach_device("cpu")
     with profiling.trace(str(tmp_path), "cpu") as prof:
-        rs = eng.online_many(qs)
+        rs = eng.online_many(qs, union="host")
     assert all(list(r.timings_ms) == ["query_plan", "search", "refine"]
                for r in rs)
     with open(prof.trace_path) as f:

@@ -1,9 +1,9 @@
 """The index search's spans and copy counters
 (gnnpe_tpu_torch/index/device_packed.py): every searcher, under both
 unions, leaves ``filter_ms``, ``phase2_ms``, ``copy_ms`` and
-``extract_ms`` in ``last_stats`` beside ``hit_rows`` and
-``copied_bytes``; the copies fall where the spans say; and on a card the
-spans add no ``torch.cuda.synchronize``.
+``extract_ms`` in ``last_stats`` beside ``hit_rows``, ``copied_bytes``,
+``union`` and ``cand_ids``; the copies fall where the spans say; and on
+a card the spans add no ``torch.cuda.synchronize``.
 
 This file imports no JAX, so its ``cuda`` case runs on the card:
 
@@ -12,6 +12,7 @@ This file imports no JAX, so its ``cuda`` case runs on the card:
 
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,6 +20,7 @@ from gnnpe_tpu_torch.config import PEConfig, PGEConfig
 from gnnpe_tpu_torch.engine import PEEngine, PGEEngine
 from gnnpe_tpu_torch.index import device_packed
 from gnnpe_tpu_torch.io.datasets import powerlaw_graph, sample_query
+from gnnpe_tpu_torch.ops import union_bitmap
 
 KEYS = ["filter_ms", "phase2_ms", "copy_ms", "extract_ms"]
 DELAY_S = 0.03
@@ -64,6 +66,9 @@ def _probe(eng):
 @pytest.mark.parametrize("union", ["host", "device"])
 @pytest.mark.parametrize("kind", ["array", "table", "streamed", "pge"])
 def test_spans_and_copy_counters_in_last_stats(graph, kind, union):
+    """Both unions count the same hit rows (the device union's in its
+    kernel) and say which ran; the host union copies each hit column's
+    mask and row, the device union only its offsets and ids."""
     g, queries = graph
     eng = _engine(kind, g)
     seen = _probe(eng)
@@ -74,39 +79,63 @@ def test_spans_and_copy_counters_in_last_stats(graph, kind, union):
         assert list(st)[:4] == ["blocks", "phase1", "survived", "chunks"]
         assert all(st[k] >= 0.0 for k in KEYS)
         assert sum(st[k] for k in KEYS) <= r.timings_ms["search"]
+        assert st["union"] == union
+        assert st["cand_ids"] == sum(map(len, r.candidates))
         if union == "host":
             assert st["copied_bytes"] == (_rows(seen[-1]) + 8) * st["hit_rows"]
             assert st["copy_ms"] > 0.0 or st["survived"] == 0
         else:
-            assert st["copy_ms"] == st["copied_bytes"] == st["hit_rows"] == 0
+            nq = len(r.candidates)
+            assert st["copy_ms"] == 0.0
+            assert st["copied_bytes"] == 8 * (nq + 1) + 4 * st["cand_ids"]
+            host = eng.online(q, union="host")
+            assert eng.searcher.last_stats["hit_rows"] == st["hit_rows"]
+            assert all(np.array_equal(a, b) for a, b in
+                       zip(r.candidates, host.candidates))
         hits += st["hit_rows"]
-    assert (hits > 0) == (union == "host")
+    assert hits > 0
+
+
+def _slowed(monkeypatch, owner, name, calls):
+    """``owner.name`` held back ``DELAY_S`` a call, each call's first
+    argument's shape kept in ``calls``."""
+    inner = getattr(owner, name)
+
+    def slow(self, *args, **kwargs):
+        calls.append(tuple(self.shape))
+        time.sleep(DELAY_S)
+        return inner(self, *args, **kwargs)
+    monkeypatch.setattr(owner, name, slow)
 
 
 @pytest.mark.parametrize("union", ["host", "device"])
 def test_copies_fall_in_their_spans(graph, monkeypatch, union):
     """Each ``.cpu()`` of a table-mode search is held back ``DELAY_S``:
-    the host union's two copies a chunk land in ``copy_ms``, the device
-    union's one copy of its bitmap in ``extract_ms``."""
+    the host union's two copies a chunk land in ``copy_ms``.  The device
+    union copies nothing in its chunk loop; its scatters, held back the
+    same, land in ``phase2_ms`` and its compaction (with the copies of
+    the offsets and ids) in ``extract_ms``."""
     g, queries = graph
     eng = _engine("table", g)
     query = eng._stack([eng._query_table(queries[0])])
-    calls, inner = [], torch.Tensor.cpu
-
-    def slow_cpu(self, *args, **kwargs):
-        calls.append(tuple(self.shape))
-        time.sleep(DELAY_S)
-        return inner(self, *args, **kwargs)
-    monkeypatch.setattr(torch.Tensor, "cpu", slow_cpu)
+    calls, scatters, compactions = [], [], []
+    _slowed(monkeypatch, torch.Tensor, "cpu", calls)
+    _slowed(monkeypatch, union_bitmap, "scatter", scatters)
+    _slowed(monkeypatch, union_bitmap, "compact", compactions)
     eng.searcher.search(query, union=union)
     st = eng.searcher.last_stats
     assert st["survived"] > 0
     if union == "host":
         assert len(calls) == 2 * st["chunks"]
         assert st["copy_ms"] >= 1e3 * DELAY_S * len(calls)
+        assert scatters == compactions == []
     else:
-        assert calls == [(query.num_query_vertices, eng.searcher.num_vertices)]
-        assert st["extract_ms"] >= 1e3 * DELAY_S and st["copy_ms"] == 0.0
+        nq, v = query.num_query_vertices, eng.searcher.num_vertices
+        assert calls == [] and st["copy_ms"] == 0.0
+        assert scatters == [(nq, -(-v // 32))] * st["chunks"]
+        assert st["phase2_ms"] >= 1e3 * DELAY_S * st["chunks"]
+        assert compactions == [(nq, -(-v // 32))]
+        assert st["extract_ms"] >= 1e3 * DELAY_S
 
 
 def test_host_extraction_falls_in_extract_span(graph, monkeypatch):
@@ -118,7 +147,7 @@ def test_host_extraction_falls_in_extract_span(graph, monkeypatch):
         time.sleep(DELAY_S)
         return inner(*args, **kwargs)
     monkeypatch.setattr(device_packed, "extract_candidates", slow_extract)
-    eng.online(queries[0])
+    eng.online(queries[0], union="host")
     st = eng.searcher.last_stats
     assert st["extract_ms"] >= 1e3 * DELAY_S
 

@@ -26,8 +26,9 @@ from gnnpe_tpu_torch.io.datasets import powerlaw_graph, sample_query
 from gnnpe_tpu_torch.models.gnn import PathGNN, params_from_jax
 from gnnpe_tpu_torch.ops.spmm import NeighborSum, neighbor_sum_np
 from gnnpe_tpu_torch.parallel.binned_halo import BinnedHaloPlan
+from gnnpe_tpu_torch.ops import union_bitmap
 from gnnpe_tpu_torch.parallel.collectives import (all_gather_rows,
-                                                  gather_objects)
+                                                  gather_objects, or_words_)
 from gnnpe_tpu_torch.parallel.dist import (distributed_neighbor_sum,
                                            make_distributed_train_step,
                                            pair_loss, shard_along,
@@ -184,6 +185,48 @@ def search(rank, world, expected):
         _same(tiny_flat.search(query, union=union), ref, "tiny flat")
         _same(tiny_packed.search(query, union=union), ref, "tiny packed")
     print(f"search rank {rank}/{world} OK")
+
+
+def packed_or(rank, world):
+    """The device union's packed bitmaps OR-ed over the ranks, exactly:
+    random words (bit 31 set, so negative int32s, included) against
+    numpy's OR of every rank's, then a table-mode PE index and a PGE
+    index cut into block ranges, whose device union equals the unsharded
+    search's, one query at a time and stacked, with the ranks' hit rows
+    summing to the unsharded search's."""
+    mesh = make_mesh(world, axes=("graph",), shape=(world,), device="cpu")
+    group = axis_group(mesh, "graph")
+    mine = lambda r: np.random.RandomState(100 + r).randint(
+        -2 ** 31, 2 ** 31, (5, 7)).astype(np.int32)
+    words = torch.from_numpy(mine(rank))
+    or_words_(words, group)
+    want = np.bitwise_or.reduce([mine(r) for r in range(world)])
+    assert np.array_equal(words.numpy(), want)
+
+    g, queries = search_graph()
+    pe = PEEngine(PEConfig.from_cli(l=2, e=2), g, "cpu").offline(
+        device=True).build_index(block_size=32, table=True, resident=True)
+    pge = PGEEngine(PGEConfig.from_cli(l=2, e=2), g, "cpu").offline(
+        ).build_index(block_size=16).attach_device("cpu")
+    for name, eng in (("pe", pe), ("pge", pge)):
+        tables = [eng._stack([eng._query_table(q)]) for q in queries]
+        tables.append(eng._stack([eng._query_table(q) for q in queries]))
+        whole = [eng.searcher.search(t) for t in tables]
+        whole_hits = []
+        for t in tables:
+            eng.searcher.search(t)
+            whole_hits.append(eng.searcher.last_stats["hit_rows"])
+        sharded = (eng.searcher.shard(mesh) if name == "pge" else
+                   eng.attach_mesh(mesh, packed=True).searcher)
+        for i, t in enumerate(tables):
+            launches = union_bitmap.LAUNCHES
+            _same(sharded.search(t), whole[i], f"{name} packed OR {i}")
+            st = sharded.last_stats
+            hits = gather_objects(st["hit_rows"] if st else 0, group)
+            assert sum(hits) == whole_hits[i], (name, i, hits, whole_hits)
+            assert st is None or st["union"] == "device"
+            assert union_bitmap.LAUNCHES == launches    # CPU: plain path
+    print(f"packed_or rank {rank}/{world} OK")
 
 
 def aggregate(rank, world, expected):
