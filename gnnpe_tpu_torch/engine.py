@@ -27,6 +27,7 @@ device like any other, asked for by name (``PEEngine(cfg, g, "cpu")``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -367,31 +368,58 @@ class PGEEngine(_Engine):
         super().__init__(config, data_graph, device, embedder, membership)
         self.group = None
         self.label_group = None
+        self.build_timings = None
+
+    @contextlib.contextmanager
+    def _build_stage(self, name: str):
+        """A part of the build, timed to the device's end (its edges
+        synchronise) under the profiler range ``build.<name>``, into
+        ``build_timings["<name>_s"]``."""
+        t = StageTimer(self.device)
+        with t.stage(f"build.{name}"):
+            yield
+        self.build_timings = dict(self.build_timings or {}, **{
+            f"{name}_s": t.times_ms[f"build.{name}"] / 1e3})
 
     def offline(self, device: bool = False):
         """VDE on the device and per-vertex path groups
         (ref GNN-PGE/src/main.cpp:91-177): folded on the host, or with
         ``device=True`` enumerated and folded chunk by chunk on the
         engine's device (``path_groups_device``) — the same groups bit
-        for bit."""
-        self.vertices = self._vde(self.graph)
+        for bit.  ``build_timings`` starts anew with ``vde_s`` and
+        ``groups_s``; ``build_index`` adds ``index_s`` and
+        ``attach_device`` ``upload_s``."""
+        self.build_timings = {}
+        with self._build_stage("vde"):
+            self.vertices = self._vde(self.graph)
         order = degree_sorted_nodes(self.graph)
-        if device:
-            self.group, self.label_group = path_groups_device(
-                self.vertices, self.graph, order, self.config.path_length,
-                self.config.pde_dim, self.device)
-        else:
-            paths, _ = enumerate_paths(self.graph, order,
-                                       self.config.path_length, dedup=False)
-            self.group, self.label_group = path_groups(
-                self.vertices, paths[:, 0], paths, self.config.pde_dim)
+        with self._build_stage("groups"):
+            if device:
+                self.group, self.label_group = path_groups_device(
+                    self.vertices, self.graph, order,
+                    self.config.path_length, self.config.pde_dim,
+                    self.device)
+            else:
+                paths, _ = enumerate_paths(self.graph, order,
+                                           self.config.path_length,
+                                           dedup=False)
+                self.group, self.label_group = path_groups(
+                    self.vertices, paths[:, 0], paths, self.config.pde_dim)
         return self
 
     def build_index(self, block_size: int = 512):
-        self.index = PGEPackedIndex.build(
-            self.vertices.labels, self.vertices.degrees, self.group,
-            self.label_group, block_size=block_size)
+        """The packed vertex index on the host (``PGEPackedIndex``);
+        ``attach_device`` uploads it."""
+        with self._build_stage("index"):
+            self.index = PGEPackedIndex.build(
+                self.vertices.labels, self.vertices.degrees, self.group,
+                self.label_group, block_size=block_size)
         return self
+
+    def attach_device(self, device):
+        """``_Engine.attach_device``, timed as ``upload_s``."""
+        with self._build_stage("upload"):
+            return super().attach_device(device)
 
     def _flat_search(self, mesh, axis: str):
         if self.group is None:

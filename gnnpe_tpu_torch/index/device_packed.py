@@ -63,7 +63,8 @@ counters ``hit_rows`` (the columns with any gated hit, summed over
 chunks: on the device union the kernel counts them), ``copied_bytes``
 (what crosses to the host: the host union's masks and rows, or the
 device union's offsets and ids), ``union`` (which ran) and ``cand_ids``
-(the candidates returned, summed over query vertices).
+(the candidates returned, summed over query vertices); PGE's also
+``label_run_blocks`` (the blocks its label-run prune lets through).
 
 Every leaf decision is a native f64 compare against thresholds computed
 on the host with ``eps_threshold``, so candidate sets equal the f64 host
@@ -1517,11 +1518,23 @@ class DevicePackedPGESearch(_PackedSearch):
 
     def _prune(self, q, bmask: torch.Tensor) -> torch.Tensor:
         """A query vertex's exact-label matches lie in its label's run
-        of blocks."""
+        of blocks.  The runs' lengths, summed over the rows, are what
+        the prune lets through (``label_run_blocks``)."""
         lab = q.host_labels
-        return self._range_prune(
-            bmask, np.searchsorted(self._blk_lab_last, lab, side="left"),
-            np.searchsorted(self._blk_lab_first, lab, side="right"))
+        lo = np.searchsorted(self._blk_lab_last, lab, side="left")
+        hi = np.searchsorted(self._blk_lab_first, lab, side="right")
+        q.label_run_blocks = int(np.maximum(hi - lo, 0).sum())
+        return self._range_prune(bmask, lo, hi)
+
+    def _search_local(self, q, union: str, spans: StageTimer):
+        """The shared search, whose ``last_stats`` gains
+        ``label_run_blocks``: ``phase1`` counts the blocks the box tests
+        keep, this the blocks inside the rows' label runs, ``survived``
+        the blocks both keep."""
+        out = super()._search_local(q, union, spans)
+        if self.last_stats is not None:
+            self.last_stats["label_run_blocks"] = q.label_run_blocks
+        return out
 
     def _chunk_vids(self, blk, rows) -> torch.Tensor:
         return self.d_order[rows]
