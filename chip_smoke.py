@@ -6,7 +6,7 @@
 1. Requires a CUDA device and prints the card's name and power limit.
 2. Builds the CUDA kernels from gnnpe_tpu_torch/csrc (A1 spmm_csr, A2
    ell_gather_sum, the readout's segment_sum and the search's
-   union_bitmap; and the host C++ refinement engine).
+   union_bitmap and leaf_scatter; and the host C++ refinement engine).
 3. Kernel phase: the neighbour-sum SpMM (A1) against its plain PyTorch
    version on the card, on the dblp-rung graph — f64 at the VDE width
    (D=2), f32 at D=128 and f32 at D=8 on a 0/1 matrix (the pre-verify's
@@ -38,15 +38,25 @@
    by wall clock; and the two PE layouts' ``search`` times are compared
    on 64 more queries (seeds 100-163), in turns array, table, table,
    array, each union, with equal candidates required.
-   Union phase, on the table index: the union_bitmap scatters of one
-   online search and of the 8 queries' stacked search, recorded as the
-   search launches them (at most 64 chunks a search), replayed through
-   the kernel and ``scatter_plain`` on the card — words and hit rows
-   bit-equal — and compacted by ``compact`` against ``compact_plain``;
-   timed in turns plain, kernel, kernel, plain by CUDA events beside the
-   bytes bound.  Every engine phase sets the union's launch count to 0
-   before its searches and holds it to the launches that its
-   device-union searches' ``last_stats`` account for.
+   Union phase, on the table index: phase 2 of one online search and of
+   the 8 queries' stacked search, each one launch of the fused leaf
+   test (``leaf_scatter.scatter``), recorded as the search makes it and
+   replayed through the kernel, its plain version on the card and the
+   chain it replaced (gathers, ``pe_mask_exact`` and the union_bitmap
+   scatter a chunk) — words and hit rows bit-equal — and compacted by
+   ``compact`` against ``compact_plain``; timed in turns plain, old,
+   kernel, kernel, old, plain by CUDA events beside the bytes bound.
+   U's scatter, where the main path still launches it (after the PE
+   phase, on its array-layout index; after the PGE phase, on its
+   index): the scatters of one online search and of the 8 queries'
+   stacked search, recorded as the search launches them (at most 64
+   chunks a search), replayed through the kernel and ``scatter_plain``
+   on the card — words and hit rows bit-equal, and equal to the
+   search's union where every chunk was replayed — and timed in turns
+   plain, kernel, kernel, plain beside the bytes bound.
+   Every engine phase sets the union's and the leaf test's launch
+   counts to 0 before its searches and holds them to the launches that
+   its device-union searches' ``last_stats`` account for.
    PE streamed phase: the same index served past device memory.  The
    card would hold the table many times over, so the phase forces
    ``build_index(table=True, resident=False)``: the bucketed build on
@@ -261,7 +271,8 @@ QUERY_SEEDS = range(8)
 QUERY_SIZE = 8
 MODE_QUERIES = range(100, 164)   # the PE layouts' search comparison
 BLOCK_SIZE = 512
-KERNELS = ("spmm_csr", "ell_gather_sum", "segment_sum", "union_bitmap")
+KERNELS = ("spmm_csr", "ell_gather_sum", "segment_sum", "union_bitmap",
+           "leaf_scatter")
 PREVERIFY_ROUNDS = 2
 # The streamed phase's block pool: about a quarter of the dblp index's
 # 118,711 blocks, so that misses, hits and evictions all happen.
@@ -484,27 +495,36 @@ def _percentiles(vals):
             "p90": float(np.percentile(vals, 90))}
 
 
-def _union_launches(prefix, stats) -> int:
-    """The union_bitmap launches that one device-union search made, from
-    its ``last_stats``: a scatter a phase-2 chunk, the count and scan,
-    and the write where any id came out; none where no block survived
-    (or the query had no rows, and no stats)."""
+def _union_launches(prefix, stats, block_size) -> tuple:
+    """The union_bitmap and leaf_scatter launches that one device-union
+    search made, from its ``last_stats``: a union scatter a phase-2 chunk,
+    or where the leaf test ran fused (``leaf_fused_rows``, which must
+    then be every surviving row) a leaf_scatter launch a chunk instead;
+    the count and scan, and the write where any id came out; none where
+    no block survived (or the query had no rows, and no stats)."""
     if stats is None:
-        return 0
+        return 0, 0
     check(stats["union"] == "device",
           f"{prefix}: a device-union search ran the {stats['union']} union")
     if stats["survived"] == 0:
-        return 0
-    return stats["chunks"] + 2 + (stats["cand_ids"] > 0)
+        return 0, 0
+    fused = stats["leaf_fused_rows"] > 0
+    check(stats["leaf_fused_rows"] in (0, stats["survived"] * block_size),
+          f"{prefix}: the fused leaf test took {stats['leaf_fused_rows']} "
+          f"rows of {stats['survived']} surviving blocks")
+    compaction = 2 + (stats["cand_ids"] > 0)
+    if fused:
+        return compaction, stats["chunks"]
+    return stats["chunks"] + compaction, 0
 
 
 def _drive(eng, queries, device, wall, prefix, block_size, offline_kw,
            build_kw):
     """The main path: offline (unless the engine was handed its paths),
     index, upload, online x N under both unions, online_many.  Returns
-    the runs, each query's surviving blocks, and the union_bitmap
-    launches that the device-union searches' ``last_stats`` account
-    for."""
+    the runs, each query's surviving blocks, and the union_bitmap and
+    leaf_scatter launches that the device-union searches' ``last_stats``
+    account for."""
     with wall.stage(f"{prefix}.offline"):
         if getattr(eng, "paths", None) is None:
             eng.offline(**offline_kw)
@@ -513,20 +533,21 @@ def _drive(eng, queries, device, wall, prefix, block_size, offline_kw,
     with wall.stage(f"{prefix}.attach_device"):
         eng.attach_device(device)
     runs = {"online": [], "online_device_union": []}
-    survived, union = [], 0
+    survived, union = [], np.zeros(2, np.int64)
     for q in queries:
         runs["online"].append(eng.online(q, union="host"))
         survived.append(eng.searcher.last_stats["survived"])
         runs["online_device_union"].append(eng.online(q, union="device"))
-        union += _union_launches(prefix, eng.searcher.last_stats)
+        union += _union_launches(prefix, eng.searcher.last_stats,
+                                 block_size)
     with wall.stage(f"{prefix}.online_many"):
         runs["online_many"] = eng.online_many(queries, union="device")
-    union += _union_launches(prefix, eng.searcher.last_stats)
-    return runs, survived, union
+    union += _union_launches(prefix, eng.searcher.last_stats, block_size)
+    return runs, survived, [int(n) for n in union]
 
 
 def _summarise(prefix, eng, runs, survived, wall, launches, union_launches,
-               record) -> None:
+               leaf_launches, record) -> None:
     tensors = eng.searcher.resident_tensors()
     devices = sorted({str(t.device) for t in tensors.values()})
     single = runs["online"]
@@ -545,7 +566,7 @@ def _summarise(prefix, eng, runs, survived, wall, launches, union_launches,
         index_bytes=int(sum(t.numel() * t.element_size()
                             for t in tensors.values())),
         index_devices=devices, spmm_launches=launches,
-        union_launches=union_launches,
+        union_launches=union_launches, leaf_launches=leaf_launches,
         answers=[r.answer_count for r in single],
         candidates=[int(sum(map(len, r.candidates))) for r in single])
     if hasattr(eng, "paths"):
@@ -558,23 +579,32 @@ def _summarise(prefix, eng, runs, survived, wall, launches, union_launches,
 
 def _engine_phase(prefix, eng, queries, device, record, block_size,
                   offline_kw=None, build_kw=None):
-    """Runs ``_drive`` with the launch counts of spmm_csr and of the
-    union's kernels set to 0 just before and read just after; records
-    the union's as ``union_launches``, held to what the device-union
-    searches account for.  Returns (runs, spmm_csr launches)."""
-    from gnnpe_tpu_torch.ops import spmm, union_bitmap
+    """Runs ``_drive`` with the launch counts of spmm_csr, of the
+    union's kernels and of the fused leaf test set to 0 just before and
+    read just after; records the union's as ``union_launches`` and the
+    leaf test's as ``leaf_launches``, each held to what the device-union
+    searches account for (the leaf test's > 0 exactly on the PE table
+    layouts).  Returns (runs, spmm_csr launches)."""
+    from gnnpe_tpu_torch.index import device_packed as dp
+    from gnnpe_tpu_torch.ops import leaf_scatter, spmm, union_bitmap
     from gnnpe_tpu_torch.utils.timers import StageTimer
     wall = StageTimer(device)
-    spmm.LAUNCHES = union_bitmap.LAUNCHES = 0
-    runs, survived, union_want = _drive(
+    spmm.LAUNCHES = union_bitmap.LAUNCHES = leaf_scatter.LAUNCHES = 0
+    runs, survived, (union_want, leaf_want) = _drive(
         eng, queries, device, wall, prefix, block_size, offline_kw or {},
         build_kw or {})
     launches, union = spmm.LAUNCHES, union_bitmap.LAUNCHES
-    _summarise(prefix, eng, runs, survived, wall, launches, union, record)
+    leaf = leaf_scatter.LAUNCHES
+    _summarise(prefix, eng, runs, survived, wall, launches, union, leaf,
+               record)
     check(launches > 0, f"{prefix} phase launched no spmm_csr kernel")
     check(union == union_want > 0,
           f"{prefix} phase: {union} union_bitmap launches, its "
           f"device-union searches account for {union_want}")
+    table = isinstance(eng.searcher, (dp.TablePESearch, dp.StreamedPESearch))
+    check(leaf == leaf_want and (leaf > 0) == table,
+          f"{prefix} phase: {leaf} leaf_scatter launches, its device-union "
+          f"searches account for {leaf_want}")
     check(record[prefix]["index_devices"] == [str(eng.searcher.device)],
           f"{prefix} index tensors on {record[prefix]['index_devices']}")
     return runs, launches
@@ -917,23 +947,42 @@ def _stream_pass(name, g_tables, table, idx, union="device",
         pool_bytes=int(cache.buf.numel() * 4) if cache else 0)
 
 
+def _old_leaf_chain(args, words, hits, k) -> None:
+    """PE phase 2 as the table layout ran it before the fused kernel, from
+    a ``leaf_scatter.scatter`` call's arguments: a chunk of ``k`` blocks
+    at a time, the plain version's leaf test (``leaf_mask``: the vid rows
+    and the tables' gathers, ``pe_mask_exact``) into a [Q, K·B] mask, and
+    ``union_bitmap.scatter`` under the chunk's gate."""
+    from gnnpe_tpu_torch.ops import leaf_scatter as ls
+    from gnnpe_tpu_torch.ops import union_bitmap as ub
+    (_, v, vids, blocks, b, gate, labels, degrees, vde, q_labels, q_degrees,
+     q_thresh, out_ids, _) = args
+    for lo in range(0, blocks.numel(), k):
+        tested = ls.leaf_mask(v, vids, blocks[lo:lo + k], b, gate[lo:lo + k],
+                              labels, degrees, vde, q_labels, q_degrees,
+                              q_thresh)
+        if tested is not None:
+            ub.scatter(words, v, *tested, out_ids, hits)
+
+
 UNION_REPLAY_CHUNKS = 64      # the chunks of a search that are replayed
 
 
-def union_phase(eng, queries, device, record) -> dict:
-    """The union's kernels at the table index's main-path shapes: the
-    scatters of one online search (query 0) and of the stacked search of
-    every query, recorded as the search launches them (its first
+def scatter_replay(prefix, eng, queries, device, record) -> dict:
+    """U's scatter at the shapes of the searches that still launch it
+    (PE's array layout, ``prefix`` "pe"; PGE, "pge"): the scatters of one
+    online search (query 0) and of the stacked search of every query,
+    recorded as the search launches them (its first
     ``UNION_REPLAY_CHUNKS`` chunks), replayed through
     ``union_bitmap.scatter`` and ``scatter_plain`` on the same inputs on
-    the card, bit for bit, then ``compact`` against ``compact_plain``;
-    where every chunk was replayed, the replay equals the search's lists
-    and hit rows.  Each is timed in turns by CUDA events, host path
-    included (a scatter replay zeroes the words first, as a search's
-    ``new_words`` does), beside its bytes bound: a scatter reads mask,
-    gate, vid rows and output ids once and writes the words once; the
-    compaction reads the words once and writes offsets and ids once.
-    Returns the kernels record's rows."""
+    the card, words and hit rows bit for bit; where every chunk was
+    replayed, the replay's compaction equals the search's lists and its
+    hit rows the search's.  Timed in turns plain, kernel, kernel, plain
+    by CUDA events, host path included (a replay zeroes the words first,
+    as a search's ``new_words`` does), beside its bytes bound: mask,
+    gate, vid rows and output ids read once, the words written once.
+    Returns the kernels record's rows, ``<prefix>_<online|batch>_scatter``.
+    """
     import torch
     from gnnpe_tpu_torch.ops import union_bitmap as ub
     searcher, v = eng.searcher, eng.searcher.num_vertices
@@ -954,7 +1003,10 @@ def union_phase(eng, queries, device, record) -> dict:
         finally:
             ub.scatter = inner
         stats, nq = dict(searcher.last_stats), len(got)
-        check(chunks, f"union {name}: the search scattered no chunk")
+        tag = f"{prefix} union {name}"
+        check(chunks and stats["leaf_fused_rows"] == 0,
+              f"{tag}: the search scattered no chunk, or fused its leaf "
+              "test")
         words = {k: ub.new_words(nq, v, device) for k in ("kernel", "plain")}
         hits = {k: torch.zeros(1, dtype=torch.int64, device=device)
                 for k in words}
@@ -969,55 +1021,177 @@ def union_phase(eng, queries, device, record) -> dict:
             scatter_all(how)
         check(torch.equal(words["kernel"], words["plain"])
               and int(hits["kernel"]) == int(hits["plain"]),
-              f"union {name}: the scatter kernel's words or hit rows differ "
-              "from scatter_plain's")
+              f"{tag}: the scatter kernel's words or hit rows differ from "
+              "scatter_plain's")
+        whole = len(chunks) == stats["chunks"]
+        check(not whole or (int(hits["kernel"]) == stats["hit_rows"] and all(
+            np.array_equal(a, b) for a, b in zip(
+                ub.split(*ub.compact(words["kernel"], v)), got))),
+              f"{tag}: the replay differs from the search's union")
+        w = words["kernel"].shape[1]
+        nbytes = sum(m.numel() + g.numel() + 4 * (i.numel() + o.numel())
+                     for m, g, i, o in chunks) + 4 * nq * w
+        plain, kern = (lambda: scatter_all("plain"),
+                       lambda: scatter_all("kernel"))
+        p1, k1, k2, p2 = (cuda_ms(plain, 3), cuda_ms(kern, 20),
+                          cuda_ms(kern, 20), cuda_ms(plain, 3))
+        row = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                   turns_ms=[p1, k1, k2, p2],
+                   bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
+                   bytes_moved=int(nbytes), library_ms=None, max_abs_err=0.0)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows[f"{prefix}_{name}_scatter"] = row
+        rec[name] = dict(query_vertices=nq, row_words=w,
+                         chunks=stats["chunks"], replayed=len(chunks),
+                         hit_rows=int(hits["kernel"]),
+                         search_hit_rows=stats["hit_rows"])
+        print(f"{tag} scatter: bit-equal to plain; {nq} query vertices x "
+              f"{w} words, {len(chunks)} of {stats['chunks']} chunks "
+              f"replayed, {int(hits['kernel'])} hit rows; kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms (plain, "
+              "kernel, kernel, plain = "
+              + ", ".join(f"{t:.4f}" for t in row["turns_ms"])
+              + f"); bound {row['bound_ms']:.5f} ms ({int(nbytes)} B): "
+              f"{100 * row['share_of_bound']:.1f} % of it by events")
+        del chunks, words, hits
+    record[f"{prefix}_scatter"] = dict(rec, rows=rows)
+    return rows
+
+
+def union_phase(eng, queries, device, record) -> dict:
+    """PE phase 2 and the union at the table index's main-path shapes: one
+    online search (query 0) and the stacked search of every query, each
+    one launch of the fused leaf test (``leaf_scatter.scatter``, its
+    arguments recorded as the search makes it; the launch count and
+    ``leaf_fused_rows`` held to the search), replayed through the kernel,
+    its plain version on the card and the chain it replaced (the mask's
+    gathers and compares and ``union_bitmap.scatter`` a ``CHUNK_ELEMS``
+    chunk), words and hit rows bit-equal, equal to the search's lists and
+    hit rows; then ``compact`` against ``compact_plain``.  Each is timed
+    in turns by CUDA events, host path included (a replay zeroes the
+    words first, as a search's ``new_words`` does), beside its bytes
+    bound: the fused test reads the surviving rows' vids, the block ids,
+    the gate and the query rows once and writes the words once (the
+    per-vertex tables, which stay in L2, left out: a floor); the
+    compaction reads the words once and writes offsets and ids once.
+    Returns the kernels record's rows, the fused test's and the
+    compaction's."""
+    import torch
+    from gnnpe_tpu_torch.index import device_packed as dp
+    from gnnpe_tpu_torch.ops import leaf_scatter as ls
+    from gnnpe_tpu_torch.ops import union_bitmap as ub
+    searcher, v = eng.searcher, eng.searcher.num_vertices
+    tables = {"online": eng._stack([eng._query_table(queries[0])]),
+              "batch": eng._stack([eng._query_table(q) for q in queries])}
+    leaf_rows, union_rows, rec, inner = {}, {}, {}, ls.scatter
+    for name, table in tables.items():
+        calls = []
+
+        def keep(*args):
+            calls.append(args)
+            return inner(*args)
+        ls.scatter = keep
+        launches = ls.LAUNCHES
+        try:
+            got = searcher.search(table, union="device")
+        finally:
+            ls.scatter = inner
+        stats, nq = dict(searcher.last_stats), len(got)
+        b = searcher.block_size
+        check(len(calls) == 1 == ls.LAUNCHES - launches == stats["chunks"]
+              and stats["leaf_fused_rows"] == stats["survived"] * b,
+              f"union {name}: {len(calls)} fused calls, "
+              f"{ls.LAUNCHES - launches} launches, {stats['chunks']} "
+              f"chunks, {stats['leaf_fused_rows']} fused rows of "
+              f"{stats['survived']} blocks")
+        args = calls[0]
+        q_rows, width = args[9].shape
+        k_old = max(1, dp.CHUNK_ELEMS // (q_rows * b * searcher.width))
+        words = {h: ub.new_words(nq, v, device)
+                 for h in ("kernel", "plain", "old")}
+        hits = {h: torch.zeros(1, dtype=torch.int64, device=device)
+                for h in words}
+        run = {"kernel": lambda: ls.scatter(words["kernel"], *args[1:13],
+                                            hits["kernel"]),
+               "plain": lambda: ls.scatter_plain(words["plain"], *args[1:13],
+                                                 hits["plain"]),
+               "old": lambda: _old_leaf_chain(args, words["old"],
+                                              hits["old"], k_old)}
+
+        def replay(how):
+            def fn():
+                words[how].zero_()
+                hits[how].zero_()
+                run[how]()
+            return fn
+        for how in words:
+            replay(how)()
+        check(all(torch.equal(words["kernel"], words[h])
+                  and int(hits["kernel"]) == int(hits[h])
+                  for h in ("plain", "old")),
+              f"union {name}: the fused kernel's words or hit rows differ "
+              "from its plain version's or the old chain's")
         offsets, ids = ub.compact(words["kernel"], v)
         want = ub.compact_plain(words["plain"].cpu(), v)
         check(np.array_equal(offsets, want[0])
-              and np.array_equal(ids, want[1]),
-              f"union {name}: compact differs from compact_plain")
-        whole = len(chunks) == stats["chunks"]
-        check(not whole or (int(hits["kernel"]) == stats["hit_rows"] and all(
-            np.array_equal(a, b) for a, b in zip(ub.split(offsets, ids),
-                                                 got))),
-              f"union {name}: the replay differs from the search's union")
+              and np.array_equal(ids, want[1])
+              and int(hits["kernel"]) == stats["hit_rows"] and all(
+                  np.array_equal(a, c)
+                  for a, c in zip(ub.split(offsets, ids), got)),
+              f"union {name}: compact differs from compact_plain, or the "
+              "replay from the search's union")
         w = words["kernel"].shape[1]
-        in_bytes = sum(m.numel() + g.numel() + 4 * (i.numel() + o.numel())
-                       for m, g, i, o in chunks)
-        for part, fns, nbytes in (
-                ("scatter", (lambda: scatter_all("plain"),
-                             lambda: scatter_all("kernel")),
-                 in_bytes + 4 * nq * w),
-                ("compact", (lambda: ub.compact_plain(
-                    words["kernel"].cpu(), v),
-                    lambda: ub.compact(words["kernel"], v)),
-                 4 * nq * w + 8 * (nq + 1) + 4 * len(ids))):
-            plain, kern = fns
-            p1, k1, k2, p2 = (cuda_ms(plain, 3), cuda_ms(kern, 20),
-                              cuda_ms(kern, 20), cuda_ms(plain, 3))
-            row = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                       turns_ms=[p1, k1, k2, p2],
-                       bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
-                       bytes_moved=int(nbytes), library_ms=None,
-                       max_abs_err=0.0)
-            row["share_of_bound"] = row["bound_ms"] / row["ms"]
-            rows[f"{name}_{part}"] = row
-            print(f"union {name} {part}: bit-equal to plain; kernel "
-                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms "
-                  f"(plain, kernel, kernel, plain = "
-                  + ", ".join(f"{t:.4f}" for t in row["turns_ms"])
-                  + f"); bound {row['bound_ms']:.5f} ms ({int(nbytes)} B): "
-                  f"{100 * row['share_of_bound']:.1f} % of it by events")
-        rec[name] = dict(query_vertices=nq, row_words=w,
-                         chunks=stats["chunks"], replayed=len(chunks),
+        blocks = args[3].numel()
+        leaf_bytes = (blocks * (b * width * 4 + 8 + q_rows)
+                      + sum(t.numel() * t.element_size() for t in args[9:13])
+                      + 4 * nq * w)
+        p1, o1, k1, k2, o2, p2 = (
+            cuda_ms(replay("plain"), 3), cuda_ms(replay("old"), 3),
+            cuda_ms(replay("kernel"), 20), cuda_ms(replay("kernel"), 20),
+            cuda_ms(replay("old"), 3), cuda_ms(replay("plain"), 3))
+        row = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                   old_chain_ms=(o1 + o2) / 2, turns_ms=[p1, o1, k1, k2, o2,
+                                                         p2],
+                   bound_ms=leaf_bytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
+                   bytes_moved=int(leaf_bytes), library_ms=None,
+                   max_abs_err=0.0)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        leaf_rows[f"{name}_leaf"] = row
+        print(f"union {name} fused leaf test: bit-equal to plain and to the "
+              f"old chain; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, old chain {row['old_chain_ms']:.4f}"
+              f" ms ({-(-blocks // k_old)} chunks; plain, old, kernel, "
+              "kernel, old, plain = "
+              + ", ".join(f"{t:.4f}" for t in row["turns_ms"])
+              + f"); bound {row['bound_ms']:.5f} ms ({int(leaf_bytes)} B): "
+              f"{100 * row['share_of_bound']:.1f} % of it by events")
+        nbytes = 4 * nq * w + 8 * (nq + 1) + 4 * len(ids)
+        c1, d1, d2, c2 = (
+            cuda_ms(lambda: ub.compact_plain(words["kernel"].cpu(), v), 3),
+            cuda_ms(lambda: ub.compact(words["kernel"], v), 20),
+            cuda_ms(lambda: ub.compact(words["kernel"], v), 20),
+            cuda_ms(lambda: ub.compact_plain(words["kernel"].cpu(), v), 3))
+        row = dict(ms=(d1 + d2) / 2, plain_ms=(c1 + c2) / 2,
+                   turns_ms=[c1, d1, d2, c2],
+                   bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
+                   bytes_moved=int(nbytes), library_ms=None, max_abs_err=0.0)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        union_rows[f"{name}_compact"] = row
+        print(f"union {name} compact: equal to plain; kernels {row['ms']:.4f}"
+              f" ms, plain {row['plain_ms']:.4f} ms (plain, kernel, kernel, "
+              "plain = " + ", ".join(f"{t:.4f}" for t in row["turns_ms"])
+              + f"); bound {row['bound_ms']:.5f} ms ({int(nbytes)} B): "
+              f"{100 * row['share_of_bound']:.1f} % of it by events")
+        rec[name] = dict(query_vertices=nq, query_rows=q_rows, row_words=w,
+                         blocks=blocks, old_chunks=-(-blocks // k_old),
                          hit_rows=int(hits["kernel"]), ids=len(ids),
                          search_hit_rows=stats["hit_rows"])
-        print(f"union {name}: {nq} query vertices x {w} words, "
-              f"{len(chunks)} of {stats['chunks']} chunks replayed, "
-              f"{int(hits['kernel'])} hit rows, {len(ids)} ids")
-        del chunks, words, hits
-    record["union"] = dict(rec, rows=rows)
-    return rows
+        print(f"union {name}: {nq} query vertices ({q_rows} rows) x {w} "
+              f"words, {blocks} blocks, {int(hits['kernel'])} hit rows, "
+              f"{len(ids)} ids")
+        del calls, args, words, hits, run
+    record["union"] = dict(rec, rows=dict(leaf_rows, **union_rows))
+    return leaf_rows, union_rows
 
 
 def pe_streamed_phase(g, queries, device, record, oracle, table_eng,
@@ -3337,12 +3511,15 @@ def main() -> int:
     launches, pe_oracle = pe_phase(g, queries, device, record)
     peak("pe")
     fresh("pe")
+    scatter_rows = scatter_replay("pe", pe_oracle["engine"], queries, device,
+                                  record)
+    fresh("pe_scatter")
     base = torch.cuda.memory_allocated()      # the array-mode PE index
     a1, table_eng = pe_table_phase(g, queries, device, record, pe_oracle)
     launches += a1
     peak("pe_table", base)
     fresh("pe_table")
-    union_rows = union_phase(table_eng, queries, device, record)
+    leaf_rows, union_rows = union_phase(table_eng, queries, device, record)
     fresh("union")
     launches += pe_streamed_phase(g, queries, device, record, pe_oracle,
                                   table_eng)
@@ -3352,6 +3529,9 @@ def main() -> int:
     launches += a1
     peak("pge")
     fresh("pge")
+    scatter_rows.update(scatter_replay("pge", pge_oracle["engine"], queries,
+                                       device, record))
+    fresh("pge_scatter")
     (a1, a2_multi, seg_multi), a1_rect, a2_rect = multi_device_phase(
         g, queries, device, record, pe_oracle, pge_oracle,
         record["pe_table"]["index_file"])
@@ -3414,7 +3594,9 @@ def main() -> int:
                         + bench_launches[1]),
         segment_sum=seg_train + seg_fit + seg_streamed + seg_multi,
         union_bitmap=sum(r["union_launches"] for r in record.values()
-                         if isinstance(r, dict) and "union_launches" in r))
+                         if isinstance(r, dict) and "union_launches" in r),
+        leaf_scatter=sum(r["leaf_launches"] for r in record.values()
+                         if isinstance(r, dict) and "leaf_launches" in r))
     check(min(kernel_launches.values()) > 0,
           f"a kernel did not launch on the main paths: {kernel_launches}")
     foreign = sorted(m for m in sys.modules
@@ -3437,8 +3619,14 @@ def main() -> int:
         _kernel_row("union_bitmap", "none: the search's device union (an "
                     "XLA scatter into a bool bitmap in gnnpe_tpu/index/"
                     "device_packed.py, no Pallas kernel)",
-                    kernel_launches["union_bitmap"], union_rows,
-                    "online_scatter")]}))
+                    kernel_launches["union_bitmap"],
+                    dict(scatter_rows, **union_rows), "pge_online_scatter"),
+        _kernel_row("leaf_scatter", "none: PE phase 2 (the table layout's "
+                    "gathers and XLA compares in gnnpe_tpu/index/"
+                    "device_packed.py, no Pallas kernel); absorbs "
+                    "union_bitmap's scatter for the PE table layouts",
+                    kernel_launches["leaf_scatter"], leaf_rows,
+                    "online_leaf")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,8 +27,9 @@ classes, one per layout:
     which of the two an index of a given size gets on a given device.
 
 The three differ in one hook of the search, ``_chunk_vids`` (a chunk's
-vid rows on the device), and in how they are built.  Every class answers
-one protocol,
+vid rows on the device; the table layouts' ``_vid_blocks``, a vid table
+and the chunk's blocks in it), and in how they are built.  Every class
+answers one protocol,
 ``search(query, union=)``:
 
   phase 1 — block mask bool[Q, NB]: every query row against every block
@@ -40,20 +41,25 @@ one protocol,
   phase 2 — the surviving blocks' rows are gathered and leaf-tested,
     gated by per-(row, block) survival.  Blocks go in chunks sized so
     that the [Q, K·B, width] compare stays under ``CHUNK_ELEMS`` (and,
-    streamed, within the cache pool).
+    streamed, within the cache pool).  On the device union the PE table
+    layouts fuse the leaf test and the scatter below into one launch
+    (ops/leaf_scatter.py, csrc/leaf_scatter.cu) over every surviving
+    block (streamed: a launch a chunk), which writes no mask.
   union — "device" (the default): each chunk's gated hits are OR-ed
     into a bit-packed bitmap [nq, ⌈V/32⌉] on the device, without a wait
-    (ops/union_bitmap.py, the kernels of csrc/union_bitmap.cu), and the
-    bitmap is compacted there into each query vertex's sorted ids, which
-    come back in one copy; "host": the hit columns come back and
-    candidates are extracted on the host.
+    (ops/union_bitmap.py, the kernels of csrc/union_bitmap.cu; in the PE
+    table layouts by the fused leaf test), and the bitmap is compacted
+    there into each query vertex's sorted ids, which come back in one
+    copy; "host": the hit columns come back and candidates are
+    extracted on the host.
 
 Each search times four spans on the host clock, each also a profiler
 range (``search.filter``: phase 1, the prune and the selection;
 ``search.phase2``: the chunks' gathers, leaf tests and hit columns, or
-on the device union their scatter and, last, the read of its hit
-counter; ``search.copy``: the host union's copies of each chunk's hit
-mask and rows; ``search.extract``: the union, the hits' concatenation
+on the device union their scatter (the PE table layouts: the fused
+launches) and, last, the read of its hit counter; ``search.copy``: the
+host union's copies of each chunk's hit mask and rows;
+``search.extract``: the union, the hits' concatenation
 and extraction, or the bitmap's compaction and the copies of its
 offsets and ids, and on a sharded index the wait in the union's
 collective).  Their edges fall on calls that wait for the device anyway,
@@ -63,8 +69,10 @@ counters ``hit_rows`` (the columns with any gated hit, summed over
 chunks: on the device union the kernel counts them), ``copied_bytes``
 (what crosses to the host: the host union's masks and rows, or the
 device union's offsets and ids), ``union`` (which ran) and ``cand_ids``
-(the candidates returned, summed over query vertices); PGE's also
-``label_run_blocks`` (the blocks its label-run prune lets through).
+(the candidates returned, summed over query vertices),
+``leaf_fused_rows`` (the vid rows the fused leaf test took, survived ×
+B; 0 where the mask path ran); PGE's also ``label_run_blocks`` (the
+blocks its label-run prune lets through).
 
 Every leaf decision is a native f64 compare against thresholds computed
 on the host with ``eps_threshold``, so candidate sets equal the f64 host
@@ -101,7 +109,7 @@ from gnnpe_tpu_torch.match.device_filter import (extract_candidates,
                                                  pe_mask_exact,
                                                  pge_mask_exact)
 from gnnpe_tpu_torch.match.filter import eps_threshold
-from gnnpe_tpu_torch.ops import union_bitmap
+from gnnpe_tpu_torch.ops import leaf_scatter, union_bitmap
 from gnnpe_tpu_torch.parallel.collectives import (barrier, dist_rank,
                                                   gather_objects, or_words_,
                                                   union_candidates)
@@ -728,13 +736,19 @@ class _PackedSearch:
     the fields below and supply ``_prepare`` (whose query carries
     ``out_ids``, int32 [Q, L']: the query vertex of each position of a
     row), ``_phase1``, ``_prune``, ``_chunk_vids`` (a chunk's vertex ids
-    [K·B, L']), ``_leaf_mask`` and ``_extract``."""
+    [K·B, L']), ``_leaf_mask`` and ``_extract``; one that fuses phase 2
+    on the device union (``fuses_leaf``) also ``_fused_chunk`` and
+    ``_leaf_scatter``."""
 
     device: torch.device
     block_size: int
     num_blocks: int
     num_vertices: int
     width: int              # embedding columns of one entry
+    # Whether the device union's phase 2 runs as one fused leaf test and
+    # scatter (``_leaf_scatter``) instead of ``_leaf_mask`` and the
+    # union's scatter: a property of the layout, whatever the shapes.
+    fuses_leaf = False
 
     def _put(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -874,9 +888,13 @@ class _PackedSearch:
             sel = torch.nonzero(bmask.any(0)).squeeze(1)
         k = self._chunk_limit(max(1, CHUNK_ELEMS // (q.rows * b * self.width)))
         n_sel = sel.numel()
+        fused = union == "device" and self.fuses_leaf
+        if fused:
+            k = self._fused_chunk(k, n_sel)
         st = self.last_stats = dict(blocks=nb, phase1=phase1, survived=n_sel,
                                     chunks=-(-n_sel // k), hit_rows=0,
-                                    copied_bytes=0)
+                                    copied_bytes=0,
+                                    leaf_fused_rows=n_sel * b if fused else 0)
         if n_sel == 0:
             return None
         offs = torch.arange(b, device=self.device)
@@ -888,6 +906,9 @@ class _PackedSearch:
         for lo in range(0, n_sel, k):
             with spans.stage("search.phase2"):
                 blk = sel[lo:lo + k]
+                if fused:
+                    self._leaf_scatter(q, bmask, blk, words, hits)
+                    continue
                 rows = (blk[:, None] * b + offs[None]).reshape(-1)
                 vids = self._chunk_vids(blk, rows)
                 leaf, gate = self._leaf_mask(q, rows, vids), bmask[:, blk]
@@ -990,10 +1011,12 @@ class _TableLayout(_PESearch):
     at V, through which the leaf test gathers a chunk's vid rows; f32
     block summaries; the per-block signature ranges of the sort key,
     which prune blocks after phase 1; the sorted vid table on the host
-    (``_host_vids``); ``save`` and ``load``.  A mode supplies
-    ``_chunk_vids``."""
+    (``_host_vids``); ``save`` and ``load``; on the device union, phase 2
+    as the fused leaf test.  A mode supplies ``_vid_blocks`` (a vid table
+    on the device and the chunk's blocks in it)."""
 
     streamed = False
+    fuses_leaf = True
     _ROW_FIELDS = ("d_vids",)
     _BLOCK_FIELDS = ("b_ub", "b_llo", "b_lhi", "b_deg", "_blk_sig_first",
                      "_blk_sig_last")
@@ -1151,6 +1174,24 @@ class _TableLayout(_PESearch):
                              self.t_vde[vid].reshape(len(vid), -1),
                              q.labels, q.degrees, q.thresh)
 
+    def _fused_chunk(self, k: int, n_sel: int) -> int:
+        """The blocks one fused launch takes: every surviving block where
+        the table is resident; streamed mode keeps its chunk, bounded by
+        its pool."""
+        return k if self.streamed else max(1, n_sel)
+
+    def _leaf_scatter(self, q, bmask, blk, words, hits) -> None:
+        """The blocks ``blk`` leaf-tested against their gated query rows
+        and their hits OR-ed into ``words`` by one launch of
+        ``leaf_scatter.scatter``: no gathered table, mask or row index is
+        made."""
+        vids, ids = self._vid_blocks(blk)
+        leaf_scatter.scatter(
+            words, self.num_vertices, vids, ids, self.block_size,
+            bmask.t()[blk].contiguous(), self.t_labels, self.t_degrees,
+            self.t_vde, q.labels.int(), q.degrees.int(), q.thresh,
+            q.out_ids, hits)
+
 
 load = _TableLayout.load
 
@@ -1168,6 +1209,9 @@ class TablePESearch(_TableLayout):
                           sig_last, sig_radix, num_entries, block_size,
                           base_epsilon)
         self.d_vids = vids
+
+    def _vid_blocks(self, blk):
+        return self.d_vids, blk
 
     @classmethod
     def build_from_paths(cls, paths, vertices, device,
@@ -1431,21 +1475,23 @@ class StreamedPESearch(_TableLayout):
     def _chunk_limit(self, k: int) -> int:
         return min(k, self._cache.capacity) if self._cache else k
 
-    def _chunk_vids(self, blk, rows) -> torch.Tensor:
+    def _vid_blocks(self, blk):
         blks = blk.cpu().numpy()
         b, l = self.block_size, self._host_vids.shape[1]
         if self._cache is not None:
-            slots = torch.from_numpy(self._cache.ensure(
+            return self._cache.buf, torch.from_numpy(self._cache.ensure(
                 blks, self._host_vids)).to(self.device)
-            offs = torch.arange(b, device=self.device)
-            return self._cache.buf[(slots[:, None] * b + offs[None]
-                                    ).reshape(-1)]
         out = torch.empty((len(blks), b, l), dtype=torch.int32,
                           device=self.device)
         for lo, dev in self._ring.pieces(
                 self._host_vids.reshape(-1, b, l), blks):
             out[lo:lo + len(dev)] = dev
-        return out.view(-1, l)
+        return out.view(-1, l), torch.arange(len(blks), device=self.device)
+
+    def _chunk_vids(self, blk, rows) -> torch.Tensor:
+        vids, ids = self._vid_blocks(blk)
+        offs = torch.arange(self.block_size, device=self.device)
+        return vids[(ids[:, None] * self.block_size + offs[None]).reshape(-1)]
 
 
 class DevicePackedPGESearch(_PackedSearch):

@@ -59,6 +59,13 @@ _SIGNATURES = {
         + [_c.c_longlong] * 3 + [_c.c_void_p] * 4,
         "gnnpe_union_write": [_c.c_int, _c.c_void_p]
         + [_c.c_longlong] * 3 + [_c.c_void_p] * 3},
+    # (device, vids, blocks, gate, labels, degrees, vde, q_labels,
+    #  q_degrees, q_thresh, out_ids, words, hit_rows, num_blocks,
+    #  table_blocks, block_size, rows, width, dim, num_out, num_vertices,
+    #  row_words, stream)
+    "leaf_scatter": {
+        "gnnpe_leaf_scatter": [_c.c_int] + [_c.c_void_p] * 12
+        + [_c.c_longlong] * 2 + [_c.c_int] * 6 + [_c.c_longlong, _c.c_void_p]},
 }
 
 

@@ -20,7 +20,7 @@ from gnnpe_tpu_torch.config import PEConfig, PGEConfig
 from gnnpe_tpu_torch.engine import PEEngine, PGEEngine
 from gnnpe_tpu_torch.index import device_packed
 from gnnpe_tpu_torch.io.datasets import powerlaw_graph, sample_query
-from gnnpe_tpu_torch.ops import union_bitmap
+from gnnpe_tpu_torch.ops import leaf_scatter, union_bitmap
 
 KEYS = ["filter_ms", "phase2_ms", "copy_ms", "extract_ms"]
 DELAY_S = 0.03
@@ -108,31 +108,43 @@ def _slowed(monkeypatch, owner, name, calls):
     monkeypatch.setattr(owner, name, slow)
 
 
-@pytest.mark.parametrize("union", ["host", "device"])
-def test_copies_fall_in_their_spans(graph, monkeypatch, union):
-    """Each ``.cpu()`` of a table-mode search is held back ``DELAY_S``:
-    the host union's two copies a chunk land in ``copy_ms``.  The device
-    union copies nothing in its chunk loop; its scatters, held back the
-    same, land in ``phase2_ms`` and its compaction (with the copies of
-    the offsets and ids) in ``extract_ms``."""
+@pytest.mark.parametrize("union,kind", [
+    ("host", "table"), ("device", "table"), ("device", "array"),
+    ("device", "pge")], ids=["host", "device", "device-array", "device-pge"])
+def test_copies_fall_in_their_spans(graph, monkeypatch, union, kind):
+    """Each ``.cpu()`` of a search is held back ``DELAY_S``: the table
+    index's host union's two copies a chunk land in ``copy_ms``.  The
+    device union copies nothing in its chunk loop.  On the table index
+    its one fused leaf test over every surviving block (no union
+    scatter), held back the same, lands in ``phase2_ms``; on the mask
+    path (array layout, PGE) each chunk's union scatter, held back the
+    same, lands there instead.  Either way the compaction (with the
+    copies of the offsets and ids) lands in ``extract_ms``."""
     g, queries = graph
-    eng = _engine("table", g)
+    eng = _engine(kind, g)
     query = eng._stack([eng._query_table(queries[0])])
-    calls, scatters, compactions = [], [], []
+    calls, scatters, fused, compactions = [], [], [], []
     _slowed(monkeypatch, torch.Tensor, "cpu", calls)
     _slowed(monkeypatch, union_bitmap, "scatter", scatters)
+    _slowed(monkeypatch, leaf_scatter, "scatter", fused)
     _slowed(monkeypatch, union_bitmap, "compact", compactions)
-    eng.searcher.search(query, union=union)
+    got = eng.searcher.search(query, union=union)
     st = eng.searcher.last_stats
     assert st["survived"] > 0
     if union == "host":
         assert len(calls) == 2 * st["chunks"]
         assert st["copy_ms"] >= 1e3 * DELAY_S * len(calls)
-        assert scatters == compactions == []
+        assert scatters == fused == compactions == []
     else:
-        nq, v = query.num_query_vertices, eng.searcher.num_vertices
+        nq, v = len(got), eng.searcher.num_vertices
         assert calls == [] and st["copy_ms"] == 0.0
-        assert scatters == [(nq, -(-v // 32))] * st["chunks"]
+        launched = [(nq, -(-v // 32))] * st["chunks"]
+        if kind == "table":
+            assert scatters == [] and st["chunks"] == 1
+            assert fused == launched
+        else:
+            assert fused == [] and scatters == launched
+            assert st["leaf_fused_rows"] == 0
         assert st["phase2_ms"] >= 1e3 * DELAY_S * st["chunks"]
         assert compactions == [(nq, -(-v // 32))]
         assert st["extract_ms"] >= 1e3 * DELAY_S

@@ -16,7 +16,7 @@ import torch
 from gnnpe_tpu_torch.config import PEConfig, PGEConfig
 from gnnpe_tpu_torch.engine import PEEngine, PGEEngine
 from gnnpe_tpu_torch.io.datasets import powerlaw_graph, sample_query
-from gnnpe_tpu_torch.ops import union_bitmap
+from gnnpe_tpu_torch.ops import leaf_scatter, union_bitmap
 
 
 def _chunk(rng, q, k, b, width, nq, v, p_hit=0.2, p_gate=0.7):
@@ -238,7 +238,8 @@ def test_kernels_equal_plain_on_card(cuda_device, case):
 def test_search_on_card_equals_plain(graph, cuda_device, monkeypatch, kind):
     """A PE table index and a PGE index on the card: the device union's
     lists and counters equal the plain path's on the CPU and the host
-    union's, with the union's launches counted and no
+    union's, with the union's launches counted (the PE table index's
+    phase 2 is one fused leaf launch and no union scatter) and no
     ``torch.cuda.synchronize`` in a search."""
     g, queries = graph
     card, cpu = _engine(kind, g, cuda_device), _engine(kind, g)
@@ -251,14 +252,20 @@ def test_search_on_card_equals_plain(graph, cuda_device, monkeypatch, kind):
         return inner(*args, **kwargs)
     monkeypatch.setattr(torch.cuda, "synchronize", counted)
     for cq, pq in zip(card_queries, cpu_queries):
-        launches = union_bitmap.LAUNCHES
+        launches = union_bitmap.LAUNCHES, leaf_scatter.LAUNCHES
         got = card.searcher.search(cq)
         st = card.searcher.last_stats
-        assert union_bitmap.LAUNCHES - launches == (
-            st["chunks"] + 2 + (st["cand_ids"] > 0) if st["survived"] else 0)
+        fused = kind == "table" and st["survived"] > 0
+        assert st["leaf_fused_rows"] == (st["survived"] * 32 if fused else 0)
+        assert union_bitmap.LAUNCHES - launches[0] == (
+            (0 if fused else st["chunks"]) + 2 + (st["cand_ids"] > 0)
+            if st["survived"] else 0)
+        assert leaf_scatter.LAUNCHES - launches[1] == int(fused)
+        assert not fused or st["chunks"] == 1
         want = cpu.searcher.search(pq)
         _same_lists(got, want)
-        for key in ("hit_rows", "cand_ids", "copied_bytes", "survived"):
+        for key in ("hit_rows", "cand_ids", "copied_bytes", "survived",
+                    "leaf_fused_rows"):
             assert st[key] == cpu.searcher.last_stats[key], key
         _same_lists(got, card.searcher.search(cq, union="host"))
     assert count[0] == 0
