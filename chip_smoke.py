@@ -18,10 +18,9 @@
 4. PE phase: the exact online query at the dblp rung (317,080 vertices,
    1,049,866 edges; PE -l 2, 3-vertex paths, 512-entry blocks, answers
    capped at 100,000) over the host-built array-mode index: 8 tree
-   queries of 8 vertices through ``online`` (host union, then device
-   union), then all 8 at once through ``online_many`` with the device
-   union.  Then the pre-verify check: ``online(preverify=2,
-   union="device")`` on the same queries, whose pruned candidates must
+   queries of 8 vertices through ``online``, then all 8 at once through
+   ``online_many``.  Then the pre-verify check: ``online(preverify=2)``
+   on the same queries, whose pruned candidates must
    equal a numpy arc-consistency oracle (``neighbor_sum_np`` on the 0/1
    matrix); PE's answer counts are printed beside the unpruned ones
    (they may move), PGE's (phase 6) must not move.
@@ -37,7 +36,7 @@
    vid table to the host into fresh pinned and fresh pageable memory
    by wall clock; and the two PE layouts' ``search`` times are compared
    on 64 more queries (seeds 100-163), in turns array, table, table,
-   array, each union, with equal candidates required.
+   array, with equal candidates required.
    Union phase, on the table index: phase 2 of one online search and of
    the 8 queries' stacked search, each one launch of the fused leaf
    test (``leaf_scatter.scatter``), recorded as the search makes it and
@@ -56,14 +55,14 @@
    plain, kernel, kernel, plain beside the bytes bound.
    Every engine phase sets the union's and the leaf test's launch
    counts to 0 before its searches and holds them to the launches that
-   its device-union searches' ``last_stats`` account for.
+   its searches' ``last_stats`` account for.
    PE streamed phase: the same index served past device memory.  The
    card would hold the table many times over, so the phase forces
    ``build_index(table=True, resident=False)``: the bucketed build on
    the host with a disk spill into a temporary directory, fed chunk by
    chunk from phase 4's host paths, whose vid table, summaries and
    signature ranges must equal phase 5's device build; a block pool of
-   about a quarter of the table.  The 8 queries under both unions must
+   about a quarter of the table.  The 8 queries must
    equal the oracle; the 64 comparison queries must equal table mode's
    candidates cold (misses), warm (the same queries again: hits), hot
    (each query twice in a row, the second timed), after
@@ -92,7 +91,7 @@
    the multi-device layer on ``torch.distributed``.
    *World size 1 on NCCL*, in this process: ``make_mesh(1)``, both
    engines through ``attach_mesh(packed=True)`` and ``packed=False``,
-   both unions, held to the oracles of phases 4 and 6; ``HaloPlan`` and
+   held to the oracles of phases 4 and 6; ``HaloPlan`` and
    ``BinnedHaloPlan`` aggregation (f32 D=128) against A1's square sum
    (the halo backend bit-equal, the binned one at rtol 1e-4 / atol
    1e-4); 5 train steps of each backend ("binned_halo", "halo", "psum")
@@ -106,7 +105,7 @@
    share ``cuda:0``, compute there with the kernels, and their
    collectives cross the host (parallel/collectives.py stages by the
    group's backend).  Each rank loads its block range of the index that
-   phase 5 saved and answers the 8 queries under both unions, equal to
+   phase 5 saved and answers the 8 queries, equal to
    phase 4's oracle on every rank; the halo and binned-halo aggregation
    over 4 shards (``partition_graph``) must equal the single-device sum
    row for row (halo bit-equal, binned rtol 1e-4 / atol 1e-4); 3 steps
@@ -496,16 +495,14 @@ def _percentiles(vals):
 
 
 def _union_launches(prefix, stats, block_size) -> tuple:
-    """The union_bitmap and leaf_scatter launches that one device-union
-    search made, from its ``last_stats``: a union scatter a phase-2 chunk,
+    """The union_bitmap and leaf_scatter launches that one search made,
+    from its ``last_stats``: a union scatter a phase-2 chunk,
     or where the leaf test ran fused (``leaf_fused_rows``, which must
     then be every surviving row) a leaf_scatter launch a chunk instead;
     the count and scan, and the write where any id came out; none where
     no block survived (or the query had no rows, and no stats)."""
     if stats is None:
         return 0, 0
-    check(stats["union"] == "device",
-          f"{prefix}: a device-union search ran the {stats['union']} union")
     if stats["survived"] == 0:
         return 0, 0
     fused = stats["leaf_fused_rows"] > 0
@@ -521,10 +518,9 @@ def _union_launches(prefix, stats, block_size) -> tuple:
 def _drive(eng, queries, device, wall, prefix, block_size, offline_kw,
            build_kw):
     """The main path: offline (unless the engine was handed its paths),
-    index, upload, online x N under both unions, online_many.  Returns
-    the runs, each query's surviving blocks, and the union_bitmap and
-    leaf_scatter launches that the device-union searches' ``last_stats``
-    account for."""
+    index, upload, online x N, online_many.  Returns the runs, each
+    query's surviving blocks, and the union_bitmap and leaf_scatter
+    launches that the searches' ``last_stats`` account for."""
     with wall.stage(f"{prefix}.offline"):
         if getattr(eng, "paths", None) is None:
             eng.offline(**offline_kw)
@@ -532,16 +528,15 @@ def _drive(eng, queries, device, wall, prefix, block_size, offline_kw,
         eng.build_index(block_size=block_size, **build_kw)
     with wall.stage(f"{prefix}.attach_device"):
         eng.attach_device(device)
-    runs = {"online": [], "online_device_union": []}
+    runs = {"online": []}
     survived, union = [], np.zeros(2, np.int64)
     for q in queries:
-        runs["online"].append(eng.online(q, union="host"))
+        runs["online"].append(eng.online(q))
         survived.append(eng.searcher.last_stats["survived"])
-        runs["online_device_union"].append(eng.online(q, union="device"))
         union += _union_launches(prefix, eng.searcher.last_stats,
                                  block_size)
     with wall.stage(f"{prefix}.online_many"):
-        runs["online_many"] = eng.online_many(queries, union="device")
+        runs["online_many"] = eng.online_many(queries)
     union += _union_launches(prefix, eng.searcher.last_stats, block_size)
     return runs, survived, [int(n) for n in union]
 
@@ -553,12 +548,11 @@ def _summarise(prefix, eng, runs, survived, wall, launches, union_launches,
     single = runs["online"]
     n = len(single)
     rec = dict(wall_ms=wall.times_ms)
-    for how in ("online", "online_device_union"):
-        rec[f"{how}_ms"] = _percentiles(
-            [sum(r.timings_ms.values()) for r in runs[how]])
-        rec[f"{how}_stage_ms"] = {
-            k: _percentiles([r.timings_ms[k] for r in runs[how]])
-            for k in ("query_plan", "search", "refine")}
+    rec["online_ms"] = _percentiles(
+        [sum(r.timings_ms.values()) for r in single])
+    rec["online_stage_ms"] = {
+        k: _percentiles([r.timings_ms[k] for r in single])
+        for k in ("query_plan", "search", "refine")}
     rec.update(
         online_many_qps=n / (wall.times_ms[f"{prefix}.online_many"] / 1e3),
         blocks=eng.searcher.num_blocks,
@@ -582,9 +576,9 @@ def _engine_phase(prefix, eng, queries, device, record, block_size,
     """Runs ``_drive`` with the launch counts of spmm_csr, of the
     union's kernels and of the fused leaf test set to 0 just before and
     read just after; records the union's as ``union_launches`` and the
-    leaf test's as ``leaf_launches``, each held to what the device-union
-    searches account for (the leaf test's > 0 exactly on the PE table
-    layouts).  Returns (runs, spmm_csr launches)."""
+    leaf test's as ``leaf_launches``, each held to what the searches
+    account for (the leaf test's > 0 exactly on the PE table layouts).
+    Returns (runs, spmm_csr launches)."""
     from gnnpe_tpu_torch.index import device_packed as dp
     from gnnpe_tpu_torch.ops import leaf_scatter, spmm, union_bitmap
     from gnnpe_tpu_torch.utils.timers import StageTimer
@@ -600,11 +594,11 @@ def _engine_phase(prefix, eng, queries, device, record, block_size,
     check(launches > 0, f"{prefix} phase launched no spmm_csr kernel")
     check(union == union_want > 0,
           f"{prefix} phase: {union} union_bitmap launches, its "
-          f"device-union searches account for {union_want}")
+          f"searches account for {union_want}")
     table = isinstance(eng.searcher, (dp.TablePESearch, dp.StreamedPESearch))
     check(leaf == leaf_want and (leaf > 0) == table,
-          f"{prefix} phase: {leaf} leaf_scatter launches, its device-union "
-          f"searches account for {leaf_want}")
+          f"{prefix} phase: {leaf} leaf_scatter launches, its searches "
+          f"account for {leaf_want}")
     check(record[prefix]["index_devices"] == [str(eng.searcher.device)],
           f"{prefix} index tensors on {record[prefix]['index_devices']}")
     return runs, launches
@@ -642,15 +636,15 @@ def _arc_consistency_np(g, q, cands, rounds) -> list:
 
 def _preverify_check(prefix, eng, g, queries, runs, record,
                      counts_must_hold) -> int:
-    """``online(preverify=PREVERIFY_ROUNDS, union="device")`` on every
+    """``online(preverify=PREVERIFY_ROUNDS)`` on every
     query, with the kernel's count set to 0 just before and read just
     after: pruned candidates equal to the numpy oracle on the unpruned
     run's candidates; answer counts equal to the unpruned ones where
     the variant is exact.  Returns A1's launches."""
     from gnnpe_tpu_torch.ops import spmm
-    base = runs["online_device_union"]
+    base = runs["online"]
     spmm.LAUNCHES = 0
-    pruned = [eng.online(q, union="device", preverify=PREVERIFY_ROUNDS)
+    pruned = [eng.online(q, preverify=PREVERIFY_ROUNDS)
               for q in queries]
     launches = spmm.LAUNCHES
     # One launch a query is its VDE; the rest are pruning rounds.
@@ -815,20 +809,19 @@ def pe_table_phase(g, queries, device, record, oracle,
                   for k in ("d_vids", "b_ub", "b_llo", "b_lhi", "b_deg")),
           "the loaded index differs from the saved one")
     eng.searcher = loaded
-    for union in ("host", "device"):
-        for i, q in enumerate(queries):
-            r = eng.online(q, union=union)
-            check(r.answer_count == oracle["counts"][i] and all(
-                np.array_equal(a, b)
-                for a, b in zip(r.candidates, oracle["wants"][i])),
-                f"pe_table: loaded index, query {i} {union}: differs")
+    for i, q in enumerate(queries):
+        r = eng.online(q)
+        check(r.answer_count == oracle["counts"][i] and all(
+            np.array_equal(a, b)
+            for a, b in zip(r.candidates, oracle["wants"][i])),
+            f"pe_table: loaded index, query {i}: differs")
     eng.searcher = idx
     del loaded
     rec["save_load"] = dict(save_s=save_s, load_s=load_s,
                             file_bytes=file_bytes)
     print(f"pe_table: save {save_s:.2f} s, load {load_s:.2f} s, "
           f"{file_bytes} B on disk; the loaded index answers every query "
-          "equal to the oracle under both unions")
+          "equal to the oracle")
 
     # Each device program of the build alone, by CUDA events.
     order = degree_sorted_nodes(g)
@@ -905,8 +898,7 @@ def _build_accounting(what, paths, vertices, device, block_size) -> tuple:
     return acc, idx
 
 
-def _stream_pass(name, g_tables, table, idx, union="device",
-                 repeat=False) -> dict:
+def _stream_pass(name, g_tables, table, idx, repeat=False) -> dict:
     """One pass of the comparison queries: per query table mode then the
     streamed index (wall ms each, ``search`` ends in a copy to the
     host), candidates required equal; the streamed side's hits, misses
@@ -917,17 +909,17 @@ def _stream_pass(name, g_tables, table, idx, union="device",
     hits = misses = uploaded = 0
     for i, q in enumerate(g_tables):
         t0 = time.perf_counter()
-        want = table.search(q, union=union)
+        want = table.search(q)
         ms["table"].append((time.perf_counter() - t0) * 1e3)
         if repeat:
-            idx.search(q, union=union)
+            idx.search(q)
         t0 = time.perf_counter()
-        got = idx.search(q, union=union)
+        got = idx.search(q)
         ms["streamed"].append((time.perf_counter() - t0) * 1e3)
         check(len(got) == len(want) and all(
             np.array_equal(a, b) for a, b in zip(got, want)),
-            f"pe_streamed {name}: query {i} {union}: candidates differ from "
-            "table mode's")
+            f"pe_streamed {name}: query {i}: candidates differ from table "
+            "mode's")
         st = idx.last_stats
         hits += st.get("cache_hits", 0)
         misses += st.get("cache_misses", 0)
@@ -935,7 +927,7 @@ def _stream_pass(name, g_tables, table, idx, union="device",
     n = len(g_tables)
     cache = idx._cache
     return dict(
-        union=union, streamed_ms=_percentiles(ms["streamed"]),
+        streamed_ms=_percentiles(ms["streamed"]),
         table_ms=_percentiles(ms["table"]),
         streamed_mean_ms=float(np.mean(ms["streamed"])),
         table_mean_ms=float(np.mean(ms["table"])),
@@ -999,7 +991,7 @@ def scatter_replay(prefix, eng, queries, device, record) -> dict:
             return inner(words, nv, mask, gate, vids, out_ids, hits)
         ub.scatter = keep
         try:
-            got = searcher.search(table, union="device")
+            got = searcher.search(table)
         finally:
             ub.scatter = inner
         stats, nq = dict(searcher.last_stats), len(got)
@@ -1093,7 +1085,7 @@ def union_phase(eng, queries, device, record) -> dict:
         ls.scatter = keep
         launches = ls.LAUNCHES
         try:
-            got = searcher.search(table, union="device")
+            got = searcher.search(table)
         finally:
             ls.scatter = inner
         stats, nq = dict(searcher.last_stats), len(got)
@@ -1268,8 +1260,6 @@ def pe_streamed_phase(g, queries, device, record, oracle, table_eng,
         check(passes["warm"]["hits"] > 0, "pe_streamed: no hit when warm")
         check(passes["warm"]["evictions"] > 0,
               "pe_streamed: a pool of a quarter of the index never evicted")
-        passes["warm_host_union"] = _stream_pass("warm host", tables, table,
-                                                 idx, union="host")
         passes["hot"] = _stream_pass("hot", tables, table, idx, repeat=True)
         # What is resident: nothing of the table's size.
         tensors = idx.resident_tensors()
@@ -1340,12 +1330,11 @@ def pe_streamed_phase(g, queries, device, record, oracle, table_eng,
               and os.path.exists(fp + ".vids.bin"),
               "pe_streamed: the saved index did not load over its sidecar")
         eng.searcher = loaded_idx
-        for union in ("host", "device"):
-            r = eng.online(queries[0], union=union)
-            check(r.answer_count == oracle["counts"][0] and all(
-                np.array_equal(a, b)
-                for a, b in zip(r.candidates, oracle["wants"][0])),
-                f"pe_streamed: loaded index, query 0 {union}: differs")
+        r = eng.online(queries[0])
+        check(r.answer_count == oracle["counts"][0] and all(
+            np.array_equal(a, b)
+            for a, b in zip(r.candidates, oracle["wants"][0])),
+            "pe_streamed: loaded index, query 0: differs")
         rec["save_load"] = dict(
             save_s=save_s, load_s=load_s,
             file_bytes=os.path.getsize(fp) + os.path.getsize(fp + ".vids.bin"))
@@ -1361,8 +1350,7 @@ def pe_streamed_phase(g, queries, device, record, oracle, table_eng,
         print(f"pe_streamed: auto_resident says resident with {free} B free "
               f"and streamed with a budget under the table; save "
               f"{save_s:.2f} s, load {load_s:.2f} s over the memmap sidecar, "
-              "query 0 equal under both unions; close() removed the spill "
-              "file")
+              "query 0 equal; close() removed the spill file")
     return launches
 
 
@@ -1392,35 +1380,31 @@ def _d2h_ms(vids) -> dict:
 
 def _compare_modes(g, array_eng, table_eng) -> dict:
     """``search`` wall ms of the array-mode and table-mode PE indexes on
-    MODE_QUERIES queries, in turns array, table, table, array per query
-    and union; each layout's time per query is the mean of its two
-    turns.  Candidates must be equal."""
+    MODE_QUERIES queries, in turns array, table, table, array per query;
+    each layout's time per query is the mean of its two turns.
+    Candidates must be equal."""
     from gnnpe_tpu_torch.io.datasets import sample_query
-    out = {}
     tables = [array_eng._stack([array_eng._query_table(
         sample_query(g, QUERY_SIZE, seed=s))]) for s in MODE_QUERIES]
-    for union in ("host", "device"):
-        times = {"array": [], "table": []}
-        for i, q in enumerate(tables):
-            got = {}
-            for mode in ("array", "table", "table", "array"):
-                eng = array_eng if mode == "array" else table_eng
-                t0 = time.perf_counter()
-                got[mode] = eng.searcher.search(q, union=union)
-                times[mode].append((time.perf_counter() - t0) * 1e3)
-            check(len(got["array"]) == len(got["table"]) and all(
-                np.array_equal(a, b)
-                for a, b in zip(got["array"], got["table"])),
-                f"modes: query {i} {union}: table candidates differ")
-        per = {m: np.asarray(t).reshape(-1, 2).mean(1)
-               for m, t in times.items()}
-        ratio = per["table"] / per["array"]
-        out[union] = dict(
-            array=_percentiles(per["array"]), table=_percentiles(per["table"]),
-            ratio_p25_p50_p75=[float(x) for x in
-                               np.percentile(ratio, [25, 50, 75])],
-            table_faster=int((ratio < 1).sum()), queries=len(ratio))
-    return out
+    times = {"array": [], "table": []}
+    for i, q in enumerate(tables):
+        got = {}
+        for mode in ("array", "table", "table", "array"):
+            eng = array_eng if mode == "array" else table_eng
+            t0 = time.perf_counter()
+            got[mode] = eng.searcher.search(q)
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+        check(len(got["array"]) == len(got["table"]) and all(
+            np.array_equal(a, b)
+            for a, b in zip(got["array"], got["table"])),
+            f"modes: query {i}: table candidates differ")
+    per = {m: np.asarray(t).reshape(-1, 2).mean(1) for m, t in times.items()}
+    ratio = per["table"] / per["array"]
+    return dict(
+        array=_percentiles(per["array"]), table=_percentiles(per["table"]),
+        ratio_p25_p50_p75=[float(x) for x in
+                           np.percentile(ratio, [25, 50, 75])],
+        table_faster=int((ratio < 1).sum()), queries=len(ratio))
 
 
 def pge_phase(g, queries, device, record, block_size=BLOCK_SIZE) -> tuple:
@@ -1783,7 +1767,7 @@ def multi_device_phase(g, queries, device, record, pe_oracle, pge_oracle,
         check(dist.get_backend(group) == "nccl" and bool((one == 1).all()),
               "multi: the world-size-1 group is not a working NCCL group")
 
-        # Both engines over the mesh, packed and flat, both unions.
+        # Both engines over the mesh, packed and flat.
         t0 = time.perf_counter()
         _zero_counts(spmm, ell, gather)
         search_ms = {}
@@ -1791,23 +1775,22 @@ def multi_device_phase(g, queries, device, record, pe_oracle, pge_oracle,
             eng = oracle["engine"]
             for packed in (True, False):
                 eng.attach_mesh(mesh, packed=packed)
-                for union in ("host", "device"):
-                    ms = []
-                    for i, q in enumerate(queries):
-                        r = eng.online(q, union=union)
-                        ms.append(r.timings_ms["search"])
-                        _check_query(
-                            f"multi world 1 {variant} packed={packed}", i,
-                            {union: [None] * i + [r]}, oracle["wants"][i],
-                            oracle["counts"][i])
-                    search_ms[f"{variant}_{'packed' if packed else 'flat'}_"
-                              f"{union}"] = _percentiles(ms)
+                ms = []
+                for i, q in enumerate(queries):
+                    r = eng.online(q)
+                    ms.append(r.timings_ms["search"])
+                    _check_query(
+                        f"multi world 1 {variant} packed={packed}", i,
+                        {"online": [None] * i + [r]}, oracle["wants"][i],
+                        oracle["counts"][i])
+                search_ms[f"{variant}_{'packed' if packed else 'flat'}"] = (
+                    _percentiles(ms))
             eng.searcher = None
-        read("search (a query's VDE)", 2 * 2 * 2 * len(queries), 0)
+        read("search (a query's VDE)", 2 * 2 * len(queries), 0)
         rec["world1_search_ms"] = search_ms
         rec["world1_search_s"] = time.perf_counter() - t0
         print(f"multi world 1 (NCCL): PE and PGE through attach_mesh, packed "
-              f"and flat, both unions, {len(queries)} queries each equal the "
+              f"and flat, {len(queries)} queries each equal the "
               "oracles; search ms: " + json.dumps(search_ms))
 
         # Aggregation over one shard against A1's square sum.
@@ -1923,7 +1906,7 @@ def multi_device_phase(g, queries, device, record, pe_oracle, pge_oracle,
     os.rmdir(os.path.dirname(index_file))
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"multi: {n} ranks on one card over gloo in {rec['ranks_s']:.1f} s: "
-          "every rank's answers equal the PE oracle under both unions, halo "
+          "every rank's answers equal the PE oracle, halo "
           "aggregation bit-equal and binned-halo within rtol 1e-4 / atol 1e-4 "
           "of the single-device sum; rank 0: " + json.dumps(ranks[0]))
     return launches, a1_rows, a2_rows
@@ -1968,16 +1951,15 @@ def multi_rank(rank: int, world: int, exchange: str) -> None:
         t.numel() * t.element_size()
         for t in eng.searcher.resident_tensors().values()))
     _zero_counts(spmm, ell, gather)             # the data graph's VDE
-    for union in ("host", "device"):
-        ms = []
-        for i, q in enumerate(queries):
-            r = eng.online(q, union=union)
-            ms.append(r.timings_ms["search"])
-            _check_query(f"multi rank {rank}", i, {union: [None] * i + [r]},
-                         ex["wants"][i], ex["counts"][i])
-        out[f"search_{union}_ms"] = _percentiles(ms)
+    ms = []
+    for i, q in enumerate(queries):
+        r = eng.online(q)
+        ms.append(r.timings_ms["search"])
+        _check_query(f"multi rank {rank}", i, {"online": [None] * i + [r]},
+                     ex["wants"][i], ex["counts"][i])
+    out["search_ms"] = _percentiles(ms)
     eng.searcher = None
-    read("search (a query's VDE)", 2 * len(queries), 0)
+    read("search (a query's VDE)", len(queries), 0)
 
     # Halo and binned-halo aggregation over the shards, row for row
     # against the single device's sum of the same x.
@@ -3213,7 +3195,7 @@ def profile_phase(g, paths, device, record, pge_engine, queries) -> None:
             for name in READOUT_RANGES}
         online_dir = f"{tmp}/online"
         with trace(online_dir, device) as prof2:
-            pge_engine.online(queries[0], union="device")
+            pge_engine.online(queries[0])
         names = {ev.get("name") for ev in _trace_events(prof2.trace_path)}
     stages = ("query_plan", "search", "refine")
     missing = [s for s in stages if s not in names]

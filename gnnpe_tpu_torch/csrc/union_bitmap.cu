@@ -25,8 +25,8 @@
 //    rows; neighbouring threads read neighbouring mask bytes of one row
 //    (coalesced) and the same gate byte (a column's block is c / B).  A
 //    gated-off row is skipped before its mask byte is read, so the
-//    repeat_interleave of the gate over [Q, K * B] that the host union
-//    needs never exists.  Each hit (row q, column c) sets bit vid & 31 of
+//    repeat_interleave of the gate over [Q, K * B] that the plain version
+//    makes never exists.  Each hit (row q, column c) sets bit vid & 31 of
 //    word vid >> 5 of output row out[q, j] for each of the L' positions j,
 //    by atomicOr, which is idempotent: the bitmap is the same whatever the
 //    order.  Most hits set a bit that is set already (a candidate lies on
@@ -36,7 +36,7 @@
 //    benchmark configuration and 12.7x at youtube's.  Ids outside [0, V)
 //    or rows outside [0, nq) are skipped (pad rows carry such ids and
 //    never pass the leaf test).  The columns with any hit are counted
-//    with one ballot and one atomicAdd a warp: the host union's hit_rows.
+//    with one ballot and one atomicAdd a warp: the search's hit_rows.
 //    Offsets into the bitmap are 64-bit (synth100m has 20 M vertices).
 //  * compaction: each row is cut into segments of seg_words words (the
 //    caller's one constant, passed to both entry points), one block a

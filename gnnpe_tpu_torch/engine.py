@@ -19,7 +19,8 @@
 VDE runs on the engine's device for the data graph and for every
 query.  Partitions only shard work and the candidate union does not
 depend on them, so the single-device engines do not partition.  Both
-variants' searches answer one protocol, ``search(query, union=)``; the
+variants' searches answer one protocol, ``search(query)``, whose
+candidate union is the bit-packed bitmap of ops/union_bitmap.py; the
 variant supplies only its query table.  The engines serve from an
 attached index only: there is no search on the host, and the CPU is a
 device like any other, asked for by name (``PEEngine(cfg, g, "cpu")``).
@@ -150,11 +151,10 @@ class _Engine:
         return self
 
     def online(self, query_graph: CSRGraph, engine: str = "native",
-               return_embeddings: bool = False, union: str = "device",
+               return_embeddings: bool = False,
                preverify: int = 0) -> MatchResult:
-        """union: the search's candidate union, "device" (the bitmap
-        built and compacted on the device) or "host" (the hit masks
-        copied back and extracted there); the same lists either way.
+        """The search unites its candidates in one way, a bitmap built
+        and compacted on the device; there is no option for it.
         preverify: rounds of semi-join pruning of the candidates on
         the device before refinement (match/preverify.py), 0 = off.  PGE
         counts do not move with it; PE counts can, by design.
@@ -166,7 +166,7 @@ class _Engine:
         with t.stage("query_plan"):
             query = self._stack([self._query_table(query_graph)])
         with t.stage("search"):
-            cands = self.searcher.search(query, union=union)
+            cands = self.searcher.search(query)
         if preverify:
             with t.stage("preverify"):
                 cands = self._prune(query_graph, cands, preverify)
@@ -179,12 +179,12 @@ class _Engine:
                            timings_ms=t.times_ms, embeddings=emb)
 
     def online_many(self, query_graphs, engine: str = "native",
-                    union: str = "device",
                     preverify: int = 0) -> List[MatchResult]:
         """Batched serving: all queries' rows stack into one search
         (query-vertex ids offset into one disjoint space), then the
         candidates split per query for ``preverify`` rounds of pruning
-        (as in ``online``) and refinement.  Each result's
+        (as in ``online``) and refinement; like ``online`` it takes no
+        union option.  Each result's
         ``timings_ms`` holds ``query_plan``, ``search``, [``preverify``],
         ``refine``, as ``online``'s does; its ``query_plan`` and
         ``search`` are the batch's, the same in every result."""
@@ -195,7 +195,7 @@ class _Engine:
             query = self._stack([self._query_table(qg)
                                  for qg in query_graphs])
         with t.stage("search"):
-            cands_all = self.searcher.search(query, union=union)
+            cands_all = self.searcher.search(query)
         per_query, base = [], 0
         for qg in query_graphs:
             per_query.append(cands_all[base:base + qg.num_vertices])

@@ -127,16 +127,15 @@ def _candidates(result) -> int:
 
 
 def _serve(eng, qs, answers, lat_ms) -> dict:
-    """Every query at once through ``online_many`` with the device
-    union, twice (the second pass is the steady state), answers held to
-    the per-query loop's."""
+    """Every query at once through ``online_many``, twice (the second
+    pass is the steady state), answers held to the per-query loop's."""
     t0 = time.time()
-    rs = eng.online_many(qs, union="device")
+    rs = eng.online_many(qs)
     cold_s = time.time() - t0
     if [r.answer_count for r in rs] != answers:
         raise AssertionError("online_many answers != per-query")
     t0 = time.time()
-    rs = eng.online_many(qs, union="device")
+    rs = eng.online_many(qs)
     serving_s = time.time() - t0
     if [r.answer_count for r in rs] != answers:
         raise AssertionError("online_many answers != per-query")
@@ -317,7 +316,7 @@ def _run_pe(g, qs, mesh, device, common, emit, est_paths3, block_size,
     misses, uploaded = [], []
     for q in qs:
         t0 = time.time()
-        r = eng.online(q, union="host")
+        r = eng.online(q)
         lat.append((time.time() - t0) * 1e3)
         answers.append(r.answer_count)
         cands.append(_candidates(r))

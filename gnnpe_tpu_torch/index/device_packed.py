@@ -26,11 +26,10 @@ classes, one per layout:
     with the cache off by a per-chunk upload.  ``auto_resident`` says
     which of the two an index of a given size gets on a given device.
 
-The three differ in one hook of the search, ``_chunk_vids`` (a chunk's
-vid rows on the device; the table layouts' ``_vid_blocks``, a vid table
-and the chunk's blocks in it), and in how they are built.  Every class
-answers one protocol,
-``search(query, union=)``:
+The three differ in how a chunk's vid rows reach the leaf test (array
+mode's ``_chunk_vids``; the table layouts' ``_vid_blocks``, a vid table
+on the device and the chunk's blocks in it) and in how they are built.
+Every class answers one protocol, ``search(query)``:
 
   phase 1 — block mask bool[Q, NB]: every query row against every block
     summary (label window, degree bound, upper-bound dominance).
@@ -38,41 +37,36 @@ answers one protocol,
     exact-label matches go: PGE's blocks are label-sorted, table-mode
     and streamed PE's are sorted by label signature.
   selection — the blocks that survive for any row.
-  phase 2 — the surviving blocks' rows are gathered and leaf-tested,
-    gated by per-(row, block) survival.  Blocks go in chunks sized so
-    that the [Q, K·B, width] compare stays under ``CHUNK_ELEMS`` (and,
-    streamed, within the cache pool).  On the device union the PE table
-    layouts fuse the leaf test and the scatter below into one launch
-    (ops/leaf_scatter.py, csrc/leaf_scatter.cu) over every surviving
-    block (streamed: a launch a chunk), which writes no mask.
-  union — "device" (the default): each chunk's gated hits are OR-ed
-    into a bit-packed bitmap [nq, ⌈V/32⌉] on the device, without a wait
-    (ops/union_bitmap.py, the kernels of csrc/union_bitmap.cu; in the PE
-    table layouts by the fused leaf test), and the bitmap is compacted
-    there into each query vertex's sorted ids, which come back in one
-    copy; "host": the hit columns come back and candidates are
-    extracted on the host.
+  phase 2 — the surviving blocks' rows are leaf-tested, gated by
+    per-(row, block) survival, and every gated hit is OR-ed into a
+    bit-packed bitmap [nq, ⌈V/32⌉] on the device, without a wait
+    (ops/union_bitmap.py).  The PE table layouts fuse the leaf test and
+    the scatter into one launch (ops/leaf_scatter.py,
+    csrc/leaf_scatter.cu) over every surviving block (streamed: a launch
+    a chunk, bounded by its pool), which writes no mask.  The array
+    layout and PGE gather and test each chunk's rows (``_leaf_mask``)
+    and scatter the mask (``union_bitmap.scatter``, csrc/union_bitmap.cu),
+    in chunks sized so that the [Q, K·B, width] compare stays under
+    ``CHUNK_ELEMS``.
+  union — ``union_bitmap.unite``: on a sharded index the ranks' words
+    are OR-ed (``or_words_``), then the bitmap is compacted on the device
+    into each query vertex's sorted ids, which come back in one copy.
 
-Each search times four spans on the host clock, each also a profiler
+Each search times three spans on the host clock, each also a profiler
 range (``search.filter``: phase 1, the prune and the selection;
-``search.phase2``: the chunks' gathers, leaf tests and hit columns, or
-on the device union their scatter (the PE table layouts: the fused
-launches) and, last, the read of its hit counter; ``search.copy``: the
-host union's copies of each chunk's hit mask and rows;
-``search.extract``: the union, the hits' concatenation
-and extraction, or the bitmap's compaction and the copies of its
-offsets and ids, and on a sharded index the wait in the union's
-collective).  Their edges fall on calls that wait for the device anyway,
-so they add no synchronisation.  ``last_stats`` holds their ms
-(``filter_ms``, ``phase2_ms``, ``copy_ms``, ``extract_ms``) beside the
+``search.phase2``: the chunks' leaf tests and scatters and, last, the
+read of the scatter's hit counter; ``search.extract``: the union, with
+the wait in its collective on a sharded index, the compaction and the
+copies of its offsets and ids).  Their edges fall on calls that wait for
+the device anyway, so they add no synchronisation.  ``last_stats`` holds
+their ms (``filter_ms``, ``phase2_ms``, ``extract_ms``) beside the
 counters ``hit_rows`` (the columns with any gated hit, summed over
-chunks: on the device union the kernel counts them), ``copied_bytes``
-(what crosses to the host: the host union's masks and rows, or the
-device union's offsets and ids), ``union`` (which ran) and ``cand_ids``
-(the candidates returned, summed over query vertices),
-``leaf_fused_rows`` (the vid rows the fused leaf test took, survived ×
-B; 0 where the mask path ran); PGE's also ``label_run_blocks`` (the
-blocks its label-run prune lets through).
+chunks, counted by the scatter), ``copied_bytes`` (what crosses to the
+host: the compacted offsets and ids), ``cand_ids`` (the candidates
+returned, summed over query vertices) and ``leaf_fused_rows`` (the vid
+rows the fused leaf test took, survived × B; 0 in the array layout and
+PGE); PGE's also ``label_run_blocks`` (the blocks its label-run prune
+lets through).
 
 Every leaf decision is a native f64 compare against thresholds computed
 on the host with ``eps_threshold``, so candidate sets equal the f64 host
@@ -105,14 +99,12 @@ import torch
 
 from gnnpe_tpu_torch.config import EPSILON
 from gnnpe_tpu_torch.embed.pde import PathEmbeddings
-from gnnpe_tpu_torch.match.device_filter import (extract_candidates,
-                                                 pe_mask_exact,
+from gnnpe_tpu_torch.match.device_filter import (pe_mask_exact,
                                                  pge_mask_exact)
 from gnnpe_tpu_torch.match.filter import eps_threshold
 from gnnpe_tpu_torch.ops import leaf_scatter, union_bitmap
 from gnnpe_tpu_torch.parallel.collectives import (barrier, dist_rank,
-                                                  gather_objects, or_words_,
-                                                  union_candidates)
+                                                  gather_objects)
 from gnnpe_tpu_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
                                            shard_bounds)
 from gnnpe_tpu_torch.utils.device import as_device, free_bytes
@@ -735,19 +727,18 @@ class _PackedSearch:
     """The two-phase search shared by both variants.  Subclasses set
     the fields below and supply ``_prepare`` (whose query carries
     ``out_ids``, int32 [Q, L']: the query vertex of each position of a
-    row), ``_phase1``, ``_prune``, ``_chunk_vids`` (a chunk's vertex ids
-    [K·B, L']), ``_leaf_mask`` and ``_extract``; one that fuses phase 2
-    on the device union (``fuses_leaf``) also ``_fused_chunk`` and
-    ``_leaf_scatter``."""
+    row), ``_phase1`` and ``_prune``, and phase 2: ``_chunk_vids`` (a
+    chunk's vertex ids [K·B, L']) and ``_leaf_mask``, or where the layout
+    fuses it (``fuses_leaf``) ``_fused_chunk`` and ``_leaf_scatter``."""
 
     device: torch.device
     block_size: int
     num_blocks: int
     num_vertices: int
     width: int              # embedding columns of one entry
-    # Whether the device union's phase 2 runs as one fused leaf test and
-    # scatter (``_leaf_scatter``) instead of ``_leaf_mask`` and the
-    # union's scatter: a property of the layout, whatever the shapes.
+    # Whether phase 2 runs as one fused leaf test and scatter
+    # (``_leaf_scatter``) instead of ``_leaf_mask`` and the union's
+    # scatter: a property of the layout, whatever the shapes.
     fuses_leaf = False
 
     def _put(self, a) -> torch.Tensor:
@@ -821,61 +812,47 @@ class _PackedSearch:
         self.block_range = (lo, hi)
         self.num_blocks = hi - lo
 
-    def search(self, query, union: str = "device") -> List[np.ndarray]:
+    def search(self, query) -> List[np.ndarray]:
         """Sorted candidate vertex ids per query vertex.  On a sharded
         index this is a collective call that returns the same lists on
-        every rank: the local part over the rank's blocks, one
-        collective (the packed bitmaps' OR, or the gathered candidate
-        lists' union), and the same finish.  ``last_stats`` holds this call's
-        counters and its spans' ms (the module's docstring), or None
-        where the query has no rows or this rank holds no block."""
-        if union not in ("host", "device"):
-            raise ValueError(f"union must be 'host' or 'device', "
-                             f"got {union!r}")
+        every rank: the local part over the rank's blocks, the packed
+        bitmaps' OR, and the same compaction.  ``last_stats`` holds this
+        call's counters and its spans' ms (the module's docstring), or
+        None where the query has no rows or this rank holds no block."""
         q = self._prepare(query)
         self.last_stats = None
         if q.rows == 0 or q.num_out == 0:       # the same on every rank
             return [np.zeros(0, dtype=np.int64) for _ in range(q.num_out)]
         spans = StageTimer()        # no device: its edges never synchronise
-        local = self._search_local(q, union, spans)
+        words = self._search_local(q, spans)
         with spans.stage("search.extract"):
-            out = self._union(q, local, union)
+            out = self._union(q, words)
         if self.last_stats is not None:
             self.last_stats.update(
                 {f"{s}_ms": spans.times_ms.get(f"search.{s}", 0.0)
-                 for s in ("filter", "phase2", "copy", "extract")})
-            self.last_stats.update(union=union,
-                                   cand_ids=sum(len(c) for c in out))
+                 for s in ("filter", "phase2", "extract")})
+            self.last_stats["cand_ids"] = sum(len(c) for c in out)
         return out
 
-    def _union(self, q, local, union: str) -> List[np.ndarray]:
-        """The candidate lists from ``_search_local``'s result, through
-        the union's collective on a sharded index."""
-        if union == "device":
-            if local is None and self.group is not None:
-                local = union_bitmap.new_words(q.num_out, self.num_vertices,
-                                               self.device)
-            if local is None:
-                return [np.zeros(0, dtype=np.int64)
-                        for _ in range(q.num_out)]
-            or_words_(local, self.group)
-            offsets, ids = union_bitmap.compact(local, self.num_vertices)
-            if self.last_stats is not None:
-                self.last_stats["copied_bytes"] += offsets.nbytes + ids.nbytes
-            return union_bitmap.split(offsets, ids)
-        cands = ([np.zeros(0, dtype=np.int64) for _ in range(q.num_out)]
-                 if local is None else self._extract(q, *local))
-        return union_candidates(cands, self.group)
+    def _union(self, q, words) -> List[np.ndarray]:
+        """The candidate lists from ``_search_local``'s words, through
+        the ranks' OR on a sharded index."""
+        if words is None and self.group is not None:
+            words = union_bitmap.new_words(q.num_out, self.num_vertices,
+                                           self.device)
+        if words is None:
+            return [np.zeros(0, dtype=np.int64) for _ in range(q.num_out)]
+        out, copied = union_bitmap.unite(words, self.num_vertices,
+                                         self.group)
+        if self.last_stats is not None:
+            self.last_stats["copied_bytes"] += copied
+        return out
 
-    def _search_local(self, q, union: str, spans: StageTimer):
+    def _search_local(self, q, spans: StageTimer):
         """Phase 1, the range prune and phase 2 over the blocks held
-        here, timed in ``spans``: the packed bitmap on the device (union
-        "device"), the host hits (mask bool[Q, H], rows int64[H]) for
-        ``_extract`` (union "host"), or None where no block survives.
-        The hits are concatenated here, timed as ``search.extract``, so
-        that the chunks' copies are freed before the extraction.  No
-        collective in here: the chunk loop's length differs from rank to
-        rank."""
+        here, timed in ``spans``: the packed bitmap on the device, or
+        None where no block survives.  No collective in here: the chunk
+        loop's length differs from rank to rank."""
         if self.num_blocks == 0:
             return None
         nb, b = self.num_blocks, self.block_size
@@ -888,7 +865,7 @@ class _PackedSearch:
             sel = torch.nonzero(bmask.any(0)).squeeze(1)
         k = self._chunk_limit(max(1, CHUNK_ELEMS // (q.rows * b * self.width)))
         n_sel = sel.numel()
-        fused = union == "device" and self.fuses_leaf
+        fused = self.fuses_leaf
         if fused:
             k = self._fused_chunk(k, n_sel)
         st = self.last_stats = dict(blocks=nb, phase1=phase1, survived=n_sel,
@@ -898,11 +875,9 @@ class _PackedSearch:
         if n_sel == 0:
             return None
         offs = torch.arange(b, device=self.device)
-        if union == "device":
-            words = union_bitmap.new_words(q.num_out, self.num_vertices,
-                                           self.device)
-            hits = torch.zeros(1, dtype=torch.int64, device=self.device)
-        masks, hit_rows = [], []
+        words = union_bitmap.new_words(q.num_out, self.num_vertices,
+                                       self.device)
+        hits = torch.zeros(1, dtype=torch.int64, device=self.device)
         for lo in range(0, n_sel, k):
             with spans.stage("search.phase2"):
                 blk = sel[lo:lo + k]
@@ -911,38 +886,23 @@ class _PackedSearch:
                     continue
                 rows = (blk[:, None] * b + offs[None]).reshape(-1)
                 vids = self._chunk_vids(blk, rows)
-                leaf, gate = self._leaf_mask(q, rows, vids), bmask[:, blk]
-                if union == "device":
-                    union_bitmap.scatter(
-                        words, self.num_vertices, leaf, gate,
-                        vids.reshape(len(rows), -1), q.out_ids, hits)
-                    continue
-                m = leaf & gate.repeat_interleave(b, dim=1)
-                hit = torch.nonzero(m.any(0)).squeeze(1)
-            with spans.stage("search.copy"):
-                masks.append(m[:, hit].cpu().numpy())
-                hit_rows.append(rows[hit].cpu().numpy())
-            st["hit_rows"] += len(hit_rows[-1])
-            st["copied_bytes"] += masks[-1].nbytes + hit_rows[-1].nbytes
-        if union == "device":
-            with spans.stage("search.phase2"):
-                st["hit_rows"] = int(hits)      # waits for the chunks
-            return words
-        with spans.stage("search.extract"):
-            return np.concatenate(masks, axis=1), np.concatenate(hit_rows)
+                union_bitmap.scatter(
+                    words, self.num_vertices, self._leaf_mask(q, rows, vids),
+                    bmask[:, blk], vids.reshape(len(rows), -1), q.out_ids,
+                    hits)
+        with spans.stage("search.phase2"):
+            st["hit_rows"] = int(hits)      # waits for the chunks
+        return words
 
 
 class _PESearch(_PackedSearch):
-    """What the PE modes share: the query rows, phase 1 over the block
-    summaries (f64 in array mode; table mode's f32 widen to f64 exactly
-    in each compare) and the two unions over a chunk's vid rows.  A mode
-    supplies ``_chunk_vids`` (a chunk's vid rows int32[K·B, L] on the
-    device), ``_host_vids`` and ``_leaf_mask``."""
+    """What the PE modes share: the query rows and phase 1 over the
+    block summaries (f64 in array mode; table mode's f32 widen to f64
+    exactly in each compare).  A mode supplies phase 2."""
 
     def _prepare(self, query: PEQuery):
         rows = np.asarray(query.plan_rows, dtype=np.int64)
         t = query.pde
-        vids = t.vids[rows]
         return SimpleNamespace(
             rows=len(rows), num_out=query.num_query_vertices,
             host_labels=t.labels[rows],
@@ -951,7 +911,7 @@ class _PESearch(_PackedSearch):
             thresh=self._put(eps_threshold(t.pde[rows],
                                            self.base_epsilon)),
             pde_label=self._put(t.pde_label[rows]),
-            vids=vids, out_ids=self._put(vids.astype(np.int32)))
+            out_ids=self._put(t.vids[rows].astype(np.int32)))
 
     def _phase1(self, q, lo: int, hi: int) -> torch.Tensor:
         dom = (self.b_ub[None, lo:hi] >= q.thresh[:, None]).all(-1)
@@ -964,13 +924,6 @@ class _PESearch(_PackedSearch):
     def _prune(self, q, bmask: torch.Tensor) -> torch.Tensor:
         return bmask
 
-    def _chunk_vids(self, blk, rows) -> torch.Tensor:
-        return self.d_vids[rows]
-
-    def _extract(self, q, mask, rows) -> List[np.ndarray]:
-        return extract_candidates(mask, self._host_vids[rows], q.vids,
-                                  q.num_out)
-
 
 class DevicePackedPESearch(_PESearch):
     """PE packed index resident on ``device`` in array mode, uploaded
@@ -979,7 +932,6 @@ class DevicePackedPESearch(_PESearch):
 
     _ROW_FIELDS = ("d_labels", "d_degrees", "d_vids", "d_pde")
     _BLOCK_FIELDS = ("b_ub", "b_llo", "b_lhi", "b_deg")
-    _HOST_ROW_FIELDS = ("_host_vids",)
 
     def __init__(self, index, device, base_epsilon: float = EPSILON):
         self.device = as_device(device)
@@ -996,9 +948,11 @@ class DevicePackedPESearch(_PESearch):
         self.b_llo = self._put(index.blk_label_lo)
         self.b_lhi = self._put(index.blk_label_hi)
         self.b_deg = self._put(index.blk_max_deg)
-        self._host_vids = index.vids
         self.num_vertices = int(index.vids.max(initial=0)) + 1
         self.last_stats = None
+
+    def _chunk_vids(self, blk, rows) -> torch.Tensor:
+        return self.d_vids[rows]
 
     def _leaf_mask(self, q, rows, vids) -> torch.Tensor:
         return pe_mask_exact(self.d_labels[rows], self.d_degrees[rows],
@@ -1011,9 +965,9 @@ class _TableLayout(_PESearch):
     at V, through which the leaf test gathers a chunk's vid rows; f32
     block summaries; the per-block signature ranges of the sort key,
     which prune blocks after phase 1; the sorted vid table on the host
-    (``_host_vids``); ``save`` and ``load``; on the device union, phase 2
-    as the fused leaf test.  A mode supplies ``_vid_blocks`` (a vid table
-    on the device and the chunk's blocks in it)."""
+    (``_host_vids``); ``save`` and ``load``; phase 2 as the fused leaf
+    test.  A mode supplies ``_vid_blocks`` (a vid table on the device and
+    the chunk's blocks in it)."""
 
     streamed = False
     fuses_leaf = True
@@ -1168,12 +1122,6 @@ class _TableLayout(_PESearch):
             bmask, np.searchsorted(self._blk_sig_last, qsig, side="left"),
             np.searchsorted(self._blk_sig_first, qsig, side="right"))
 
-    def _leaf_mask(self, q, rows, vids) -> torch.Tensor:
-        vid = vids.long()
-        return pe_mask_exact(self.t_labels[vid], self.t_degrees[vid],
-                             self.t_vde[vid].reshape(len(vid), -1),
-                             q.labels, q.degrees, q.thresh)
-
     def _fused_chunk(self, k: int, n_sel: int) -> int:
         """The blocks one fused launch takes: every surviving block where
         the table is resident; streamed mode keeps its chunk, bounded by
@@ -1200,7 +1148,7 @@ class TablePESearch(_TableLayout):
     """PE packed index resident on ``device`` in table mode, built there
     by ``build_from_paths`` or read by ``load``: the layout of
     ``_TableLayout`` with the vid table int32[NB·B, L] on the device
-    (``d_vids``), from which ``_chunk_vids`` gathers."""
+    (``d_vids``), which the fused leaf test reads."""
 
     def __init__(self, vertices, tables, vids, host_vids, summaries,
                  sig_first, sig_last, sig_radix, num_entries, block_size,
@@ -1225,7 +1173,7 @@ class TablePESearch(_TableLayout):
         composite sort key, computed in steps, is ordered by
         ``stable_order`` (numpy's stable argsort), the vid table is
         permuted and folded into block summaries, and one copy of the
-        sorted table comes back for the host union and ``save``.  Stage
+        sorted table comes back for ``save``.  Stage
         times (ms, the device synchronised at each edge) land in
         ``build_phase_ms``.  Raises ``MemoryError`` when the build does
         not fit ``device``.  (Over a mesh every rank builds the whole
@@ -1281,7 +1229,7 @@ class StreamedPESearch(_TableLayout):
     host by ``build_from_paths`` or bucket by bucket by
     index/bucket_build.py, or read by ``load``.
 
-    ``_chunk_vids`` brings a chunk's vid rows to the device: from the
+    ``_vid_blocks`` brings a chunk's vid rows to the device: from the
     ``DeviceChunkCache`` pool by slot, after the chunk's misses were
     uploaded, or with ``cache=False`` by an upload of the chunk's
     host-gathered rows.  Both go through one ring of page-locked staging
@@ -1452,12 +1400,12 @@ class StreamedPESearch(_TableLayout):
         if self._host_vids is None:
             raise RuntimeError("this StreamedPESearch was closed")
 
-    def search(self, query, union: str = "device") -> List[np.ndarray]:
+    def search(self, query) -> List[np.ndarray]:
         self._check_open()
         cache = self._ensure_cache()
         before = (cache.hits, cache.misses) if cache else None
         uploaded = self._ring.uploaded_bytes
-        out = super().search(query, union)
+        out = super().search(query)
         if self.last_stats is not None:
             self.last_stats["uploaded_bytes"] = (self._ring.uploaded_bytes
                                                  - uploaded)
@@ -1488,11 +1436,6 @@ class StreamedPESearch(_TableLayout):
             out[lo:lo + len(dev)] = dev
         return out.view(-1, l), torch.arange(len(blks), device=self.device)
 
-    def _chunk_vids(self, blk, rows) -> torch.Tensor:
-        vids, ids = self._vid_blocks(blk)
-        offs = torch.arange(self.block_size, device=self.device)
-        return vids[(ids[:, None] * self.block_size + offs[None]).reshape(-1)]
-
 
 class DevicePackedPGESearch(_PackedSearch):
     """PGE packed vertex index (``PGEPackedIndex``) resident on
@@ -1503,7 +1446,6 @@ class DevicePackedPGESearch(_PackedSearch):
                    "d_order")
     _BLOCK_FIELDS = ("b_gub", "b_llo", "b_lhi", "b_deg", "_blk_lab_first",
                      "_blk_lab_last")
-    _HOST_ROW_FIELDS = ("_order",)
 
     def __init__(self, index, device, base_epsilon: float = EPSILON):
         self.device = as_device(device)
@@ -1529,7 +1471,6 @@ class DevicePackedPGESearch(_PackedSearch):
         self._blk_lab_first = lab[np.arange(nb) * b]
         self._blk_lab_last = lab[np.minimum(np.arange(1, nb + 1) * b,
                                             nv) - 1]
-        self._order = index.order
         self.num_vertices = int(index.order.max(initial=0)) + 1
         self.last_stats = None
 
@@ -1572,12 +1513,12 @@ class DevicePackedPGESearch(_PackedSearch):
         q.label_run_blocks = int(np.maximum(hi - lo, 0).sum())
         return self._range_prune(bmask, lo, hi)
 
-    def _search_local(self, q, union: str, spans: StageTimer):
+    def _search_local(self, q, spans: StageTimer):
         """The shared search, whose ``last_stats`` gains
         ``label_run_blocks``: ``phase1`` counts the blocks the box tests
         keep, this the blocks inside the rows' label runs, ``survived``
         the blocks both keep."""
-        out = super()._search_local(q, union, spans)
+        out = super()._search_local(q, spans)
         if self.last_stats is not None:
             self.last_stats["label_run_blocks"] = q.label_run_blocks
         return out
@@ -1590,8 +1531,3 @@ class DevicePackedPGESearch(_PackedSearch):
                               self.d_ghi[rows], self.d_llo[rows],
                               self.d_lhi[rows], q.labels, q.degrees,
                               q.glo, q.llo, q.lhi)
-
-    def _extract(self, q, mask, rows) -> List[np.ndarray]:
-        vid_cols = self._order[rows]
-        return [np.unique(vid_cols[mask[j]]).astype(np.int64)
-                for j in range(q.num_out)]

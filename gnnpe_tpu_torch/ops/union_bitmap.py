@@ -8,7 +8,9 @@ launches the hand-written kernels of csrc/union_bitmap.cu; on a CPU tensor
 each runs its plain version (``scatter_plain``, ``compact_plain``), which
 builds a bool bitmap, packs it into the same words and compacts with
 ``nonzero``.  Any other device raises.  The words are int32 tensors read
-as unsigned by the kernels.
+as unsigned by the kernels.  ``unite`` is every search's finish: the
+words OR-ed over the ranks of a sharded search, then compacted and split
+into one list a row.
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
 that its main path went through the kernels.
@@ -20,6 +22,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from gnnpe_tpu_torch.parallel.collectives import or_words_
 
 LAUNCHES = 0
 
@@ -212,3 +216,14 @@ def compact(words: torch.Tensor,
 def split(offsets: np.ndarray, ids: np.ndarray) -> List[np.ndarray]:
     """``compact``'s result as one sorted int64 array a row."""
     return np.split(ids.astype(np.int64), offsets[1:-1])
+
+
+def unite(words: torch.Tensor, num_vertices: int,
+          group=None) -> Tuple[List[np.ndarray], int]:
+    """The candidate lists of ``words``: OR-ed in place over ``group``'s
+    ranks (``or_words_``; None or one rank leaves them), compacted, one
+    sorted int64 array a row; and the bytes of offsets and ids that came
+    back to the host.  On a sharded search a collective call."""
+    or_words_(words, group)
+    offsets, ids = compact(words, num_vertices)
+    return split(offsets, ids), offsets.nbytes + ids.nbytes

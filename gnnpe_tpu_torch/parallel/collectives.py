@@ -20,7 +20,6 @@ from __future__ import annotations
 
 from typing import List
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -71,13 +70,6 @@ def barrier(group) -> None:
         dist.barrier(group=group)
 
 
-def or_bitmaps_(bitmap: torch.Tensor, group) -> torch.Tensor:
-    """A bool bitmap OR-ed over the group in place (MAX over its bytes):
-    the collective form of the candidate-set union."""
-    all_reduce_(bitmap.view(torch.uint8), group, op=dist.ReduceOp.MAX)
-    return bitmap
-
-
 def or_words_(words: torch.Tensor, group) -> torch.Tensor:
     """Bit-packed bitmaps (int32 words, ops/union_bitmap.py) OR-ed over
     the group in place, exactly: every rank's words are all-gathered and
@@ -90,16 +82,6 @@ def or_words_(words: torch.Tensor, group) -> torch.Tensor:
     for part in parts:
         words |= part
     return words
-
-
-def union_candidates(cands: List, group) -> List:
-    """Per query vertex, the sorted union of every rank's sorted
-    candidate ids (exact whatever the shard order)."""
-    if group_size(group) == 1:
-        return cands
-    parts = gather_objects(cands, group)
-    return [np.unique(np.concatenate([p[i] for p in parts]))
-            for i in range(len(cands))]
 
 
 class _Exchange:

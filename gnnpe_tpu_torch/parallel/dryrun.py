@@ -11,11 +11,10 @@ single device computes:
   * a "psum" train step over a (graph × batch) mesh;
   * halo and binned-halo aggregation against ``neighbor_sum_np``;
   * the engines: the index built on the mesh (``build_index`` then
-    ``attach_mesh``), flat PE (both unions) and PGE, ``online`` and
-    ``online_many``;
+    ``attach_mesh``), flat PE and PGE, ``online`` and ``online_many``;
   * the table-mode and the streamed index sharded by block range, the
-    block cache on and off (by argument), both unions;
-  * packed PGE, both unions;
+    block cache on and off (by argument);
+  * packed PGE;
   * a "binned_halo" train step.
 
 ``python -m gnnpe_tpu_torch.parallel.dryrun DEVICE [N]`` runs it on N
@@ -124,10 +123,9 @@ def dryrun_rank(rank: int, world: int, device: str,
                     membership=membership).offline().build_index(block_size=8)
     for packed in (False, True):
         pge.attach_mesh(mesh1, packed=packed)
-        for union in ("host", "device"):
-            r = pge.online(q, engine="python", union=union)
-            assert r.answer_count == want_pge.answer_count
-            _same(r.candidates, want_pge.candidates, f"PGE {packed} {union}")
+        r = pge.online(q, engine="python")
+        assert r.answer_count == want_pge.answer_count
+        _same(r.candidates, want_pge.candidates, f"PGE packed={packed}")
 
     pe1 = PEEngine(PEConfig.from_cli(l=1, e=2, p=2), g, device).offline()
     pe1.build_index(block_size=16).attach_device(device)
@@ -136,14 +134,12 @@ def dryrun_rank(rank: int, world: int, device: str,
     pe = PEEngine(PEConfig.from_cli(l=1, e=2, p=2), g, device,
                   membership=membership).offline()
     pe.build_index(block_size=16, packed=False).attach_mesh(mesh1)
-    for union in ("host", "device"):
-        r = pe.online(q, engine="python", union=union)
-        assert r.answer_count == want_pe.answer_count
-        _same(r.candidates, want_pe.candidates, f"flat PE {union}")
-        for got, ref in zip(pe.online_many(qs, engine="python", union=union),
-                            want_many):
-            assert got.answer_count == ref.answer_count
-            _same(got.candidates, ref.candidates, f"online_many {union}")
+    r = pe.online(q, engine="python")
+    assert r.answer_count == want_pe.answer_count
+    _same(r.candidates, want_pe.candidates, "flat PE")
+    for got, ref in zip(pe.online_many(qs, engine="python"), want_many):
+        assert got.answer_count == ref.answer_count
+        _same(got.candidates, ref.candidates, "flat PE online_many")
 
     # 4. Table mode and streamed mode by block range, cache on and off.
     query = pe._stack([pe._query_table(q)])
@@ -157,23 +153,22 @@ def dryrun_rank(rank: int, world: int, device: str,
             pe.paths, pe.vertices, device, block_size=16,
             cache=False).shard(mesh1)}
     for name, search in searches.items():
-        for union in ("host", "device"):
-            _same(search.search(query, union=union), want_pe.candidates,
-                  f"{name} ({union} union) != single-device search")
+        _same(search.search(query), want_pe.candidates,
+              f"{name} != single-device search")
     cache = searches["streamed cached"]._cache
     touched = 0 if cache is None else cache.hits + cache.misses
     assert sum(gather_objects(touched, axis_group(mesh1, "graph"))) > 0
     for name in ("streamed cached", "streamed uncached"):
         searches[name].close()
 
-    # 5. Packed PGE on the mesh, both unions.
+    # 5. Packed PGE on the mesh.
     psearch = DevicePackedPGESearch(
         PGEPackedIndex.build(pge.vertices.labels, pge.vertices.degrees,
                              pge.group, pge.label_group, block_size=8),
         device, base_epsilon=pge.config.epsilon).shard(mesh1)
     pq = pge._stack([pge._query_table(q)])
-    _same(psearch.search(pq, union="host"), psearch.search(pq, union="device"),
-          "PGE device union != host union")
+    _same(psearch.search(pq), want_pge.candidates,
+          "packed PGE != single-device search")
     psearch.close()
 
     # 6. A "binned_halo" step, the path batch split over the graph axis.

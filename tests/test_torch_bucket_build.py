@@ -415,9 +415,8 @@ def test_bucketed_index_answers_as_jax(case, mesh):
                                 dedup=True)
         q_pde, weight, _ = gen_query_pde_table(gen_vde(qg, 2), qp)
         plan = greedy_path_cover(qp, weight, qg.num_vertices)
-        for union in ("host", "device"):
-            got = idx.search(PEQuery(q_pde, plan, qg.num_vertices),
-                             union=union)
-            want = ref.search(q_pde, plan, qg.num_vertices, union=union)
+        got = idx.search(PEQuery(q_pde, plan, qg.num_vertices))
+        for ref_union in ("host", "device"):
+            want = ref.search(q_pde, plan, qg.num_vertices, union=ref_union)
             assert all(np.array_equal(a, b) for a, b in zip(got, want))
     assert idx._cache.misses > 0

@@ -179,8 +179,8 @@ def test_build_from_paths_bit_equal(table_pair, pe_paths, block):
                                         "d2h"}
 
 
-@pytest.mark.parametrize("union", ["host", "device"])
-def test_table_search_parity(graph, table_pair, pe_paths, union):
+@pytest.mark.parametrize("ref_union", ["host", "device"])
+def test_table_search_parity(graph, table_pair, pe_paths, ref_union):
     g, _, queries = graph
     vertices, pairs = table_pair
     ref, port = pairs[64]
@@ -189,13 +189,12 @@ def test_table_search_parity(graph, table_pair, pe_paths, union):
         PackedDominanceIndex.build(data_pde, block_size=64), "cpu")
     pruned = []
     for q_pde, plan, nq in _query_tables(queries, 2):
-        got = port.search(PEQuery(q_pde, plan, nq), union=union)
-        _assert_same(got, ref.search(q_pde, plan, nq, union=union))
+        got = port.search(PEQuery(q_pde, plan, nq))
+        _assert_same(got, ref.search(q_pde, plan, nq, union=ref_union))
         assert {k: port.last_stats[k] for k in ("phase1", "survived")} == \
             {k: ref.last_stats[k] for k in ("phase1", "survived")}
         pruned.append(port.last_stats["phase1"] - port.last_stats["survived"])
-        _assert_same(got, array.search(PEQuery(q_pde, plan, nq),
-                                       union=union))
+        _assert_same(got, array.search(PEQuery(q_pde, plan, nq)))
         _assert_same(got, pe_candidates(data_pde, q_pde, plan, nq))
         assert sum(map(len, got)) > 0
     # The signature-range prune removes blocks that phase 1 kept.
@@ -281,14 +280,14 @@ def test_pe_engine_device_offline_and_table_build(graph, mesh):
     ref.offline(device=True)
     ref.build_index(block_size=64)
     ref.attach_mesh(mesh, packed=True)
-    for union in ("host", "device"):
-        for qg in queries:
-            got, want = port.online(qg, union=union), ref.online(qg)
-            assert got.answer_count == want.answer_count
-            _assert_same(got.candidates, want.candidates)
-        many = port.online_many(queries, union=union)
-        assert [r.answer_count for r in many] == \
-            [r.answer_count for r in ref.online_many(queries, union=union)]
+    for qg in queries:
+        got, want = port.online(qg), ref.online(qg)
+        assert got.answer_count == want.answer_count
+        _assert_same(got.candidates, want.candidates)
+    many = port.online_many(queries)
+    for ref_union in ("host", "device"):
+        assert [r.answer_count for r in many] == [
+            r.answer_count for r in ref.online_many(queries, union=ref_union)]
     # The array-mode build takes the device-enumerated paths too, and
     # serves nothing until it is uploaded.
     port.build_index(block_size=64)
@@ -311,7 +310,7 @@ def test_pge_engine_device_offline(graph, monkeypatch):
     host.build_index(block_size=16).attach_device("cpu")
     port.build_index(block_size=16).attach_device("cpu")
     for qg in queries:
-        got, want = port.online(qg, union="device"), host.online(qg)
+        got, want = port.online(qg), host.online(qg)
         assert got.answer_count == want.answer_count
         _assert_same(got.candidates, want.candidates)
 

@@ -1,7 +1,8 @@
 """The port's device packed search (gnnpe_tpu_torch/index/device_packed.py)
 fed the same host index as gnnpe_tpu's DevicePackedPESearch /
-DevicePackedPGESearch on a 1-device CPU mesh: candidate lists must be
-equal to theirs and to the flat f64 filters, for both unions."""
+DevicePackedPGESearch on a 1-device CPU mesh: the port's one candidate
+union (the bit-packed bitmap) must give lists equal to both of the
+reference's unions and to the flat f64 filters."""
 
 import numpy as np
 import pytest
@@ -85,15 +86,15 @@ def _assert_same(a, b):
 
 
 @pytest.mark.parametrize("chunking", sorted(CHUNKINGS))
-@pytest.mark.parametrize("union", ["host", "device"])
-def test_pe_search_parity(pe_case, union, chunking, monkeypatch):
+@pytest.mark.parametrize("ref_union", ["host", "device"])
+def test_pe_search_parity(pe_case, ref_union, chunking, monkeypatch):
     cfg, data_pde, index, qtabs, ref = pe_case
     monkeypatch.setattr(device_packed, "CHUNK_ELEMS", CHUNKINGS[chunking])
     port = DevicePackedPESearch(index, "cpu", base_epsilon=cfg.epsilon)
     assert ref.nb_local > ref.k_chunk      # the reference chunks too
     for q_pde, plan, nq in qtabs:
-        got = port.search(PEQuery(q_pde, plan, nq), union=union)
-        _assert_same(got, ref.search(q_pde, plan, nq, union=union))
+        got = port.search(PEQuery(q_pde, plan, nq))
+        _assert_same(got, ref.search(q_pde, plan, nq, union=ref_union))
         _assert_same(got, pe_candidates(data_pde, q_pde, plan, nq,
                                         epsilon=cfg.epsilon))
         assert sum(map(len, got)) > 0
@@ -102,29 +103,22 @@ def test_pe_search_parity(pe_case, union, chunking, monkeypatch):
 
 
 @pytest.mark.parametrize("chunking", sorted(CHUNKINGS))
-@pytest.mark.parametrize("union", ["host", "device"])
-def test_pge_search_parity(pge_case, union, chunking, monkeypatch):
+@pytest.mark.parametrize("ref_union", ["host", "device"])
+def test_pge_search_parity(pge_case, ref_union, chunking, monkeypatch):
     cfg, (vertices, group, lgroup), index, qtabs, ref = pge_case
     monkeypatch.setattr(device_packed, "CHUNK_ELEMS", CHUNKINGS[chunking])
     port = DevicePackedPGESearch(index, "cpu", base_epsilon=cfg.epsilon)
     assert ref.nb_local > ref.k_chunk
     for q in qtabs:
         ids = list(range(len(q.labels)))
-        got = port.search(q, union=union)
+        got = port.search(q)
         _assert_same(got, ref.search(q.labels, q.degrees, q.group,
-                                     q.label_group, ids, union=union))
+                                     q.label_group, ids, union=ref_union))
         _assert_same(got, pge_candidates(
             vertices.labels, vertices.degrees, group, lgroup, q.labels,
             q.degrees, q.group, q.label_group, q_vertex_ids=ids,
             epsilon=cfg.epsilon))
         assert sum(map(len, got)) > 0
-
-
-def test_union_argument_checked(pe_case):
-    cfg, _, index, qtabs, _ = pe_case
-    port = DevicePackedPESearch(index, "cpu")
-    with pytest.raises(ValueError):
-        port.search(PEQuery(*qtabs[0]), union="psum")
 
 
 def test_resident_tensors_and_pads(pe_case):

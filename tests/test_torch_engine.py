@@ -77,23 +77,24 @@ def _assert_same_result(got, want):
 
 
 @pytest.mark.parametrize("variant", ["pe", "pge"])
-@pytest.mark.parametrize("union", ["host", "device"])
-def test_online_parity(graphs, pe_pair, pge_pair, variant, union):
+@pytest.mark.parametrize("ref_union", ["host", "device"])
+def test_online_parity(graphs, pe_pair, pge_pair, variant, ref_union):
     ref, port = pe_pair if variant == "pe" else pge_pair
     for qg in graphs[1]:
-        got = port.online(qg, union=union)
-        _assert_same_result(got, ref.online(qg, engine="native"))
+        got = port.online(qg)
+        _assert_same_result(got, ref.online(qg, engine="native",
+                                            union=ref_union))
         assert set(got.timings_ms) == {"query_plan", "search", "refine"}
     assert port.searcher.last_stats["survived"] > 0
 
 
 @pytest.mark.parametrize("variant", ["pe", "pge"])
-@pytest.mark.parametrize("union", ["host", "device"])
-def test_online_many_parity(graphs, pe_pair, pge_pair, variant, union):
+@pytest.mark.parametrize("ref_union", ["host", "device"])
+def test_online_many_parity(graphs, pe_pair, pge_pair, variant, ref_union):
     ref, port = pe_pair if variant == "pe" else pge_pair
     queries = graphs[1]
-    got = port.online_many(queries, union=union)
-    want = ref.online_many(queries, engine="native", union=union)
+    got = port.online_many(queries)
+    want = ref.online_many(queries, engine="native", union=ref_union)
     assert len(got) == len(want) == len(queries)
     for a, b in zip(got, want):
         _assert_same_result(a, b)
@@ -208,15 +209,15 @@ def test_build_index_streamed(graphs, mesh, tmp_path, spill):
     ref.build_index(packed=False)
     ref.sharded = jax_dp.DevicePackedPESearch.build_from_paths(
         mesh, ref.paths, ref.vertices, block_size=64, resident=False)
-    for union in ("host", "device"):
+    for ref_union in ("host", "device"):
         for qg in queries:
-            got = port.online(qg, union=union)
+            got = port.online(qg)
             _assert_same_result(got, ref.online(qg, engine="native",
-                                                union=union))
-            _assert_same_result(got, table.online(qg, union=union))
-        many = port.online_many(queries, union=union)
+                                                union=ref_union))
+            _assert_same_result(got, table.online(qg))
+        many = port.online_many(queries)
         for a, b in zip(many, ref.online_many(queries, engine="native",
-                                              union=union)):
+                                              union=ref_union)):
             _assert_same_result(a, b)
     assert idx._cache.misses > 0 and idx._cache.hits > 0
     port.attach_device("cpu")                   # already attached: no-op
@@ -279,14 +280,14 @@ for cls, cfg in ((PEEngine, PEConfig.from_cli(l=2, e=2)),
     eng = cls(cfg, g, "cpu").offline().build_index(block_size=16)
     eng.attach_device("cpu")
     assert eng.online(q).answer_count > 0
-    eng.online_many([q, q], union="device")
+    eng.online_many([q, q])
 # The device offline build, a table-mode search, save and load.
 from gnnpe_tpu_torch.graph.partition import degree_sorted_nodes
 from gnnpe_tpu_torch.index.device_packed import TablePESearch
 from gnnpe_tpu_torch.paths import pipeline
 pe = PEEngine(PEConfig.from_cli(l=2, e=2), g, "cpu").offline(device=True)
 pe.build_index(block_size=16, table=True)
-want = pe.online(q, union="device")
+want = pe.online(q)
 assert want.answer_count > 0 and isinstance(pe.searcher, TablePESearch)
 pe.searcher.save(sys.argv[1])
 pe.searcher = TablePESearch.load(sys.argv[1], pe.vertices, "cpu")
@@ -310,7 +311,7 @@ spill = sys.argv[1] + ".spill"
 pe.build_index(block_size=16, table=True, resident=False, spill_dir=spill,
                cache_bytes=50 * 16 * 12)
 assert isinstance(pe.searcher, StreamedPESearch)
-got = pe.online(q, union="device")
+got = pe.online(q)
 assert got.answer_count == want.answer_count
 assert pe.searcher.last_stats["cache_misses"] > 0
 pe.searcher.prefill_cache()

@@ -1,8 +1,8 @@
 """PE phase 2 fused (gnnpe_tpu_torch/ops/leaf_scatter.py,
 csrc/leaf_scatter.cu): ``scatter``'s plain version against a numpy
 reference word for word, at the layout's edges and at shapes past the
-kernel's register-held ones; and the PE table layouts' device union,
-which runs it at every shape, against their host union.
+kernel's register-held ones; and the PE table layouts' search, which
+runs it at every shape, against the flat f64 filter.
 
 This file imports no JAX, so its ``cuda`` cases run on the card:
 
@@ -14,8 +14,12 @@ import pytest
 import torch
 
 from gnnpe_tpu_torch.config import PEConfig, PGEConfig
+from gnnpe_tpu_torch.embed.pde import gen_pde
 from gnnpe_tpu_torch.engine import PEEngine, PGEEngine
+from gnnpe_tpu_torch.index.device_packed import PGEQuery
 from gnnpe_tpu_torch.io.datasets import powerlaw_graph, sample_query
+from gnnpe_tpu_torch.match.filter import (pe_candidates, pe_pair_mask,
+                                          pge_candidates)
 from gnnpe_tpu_torch.ops import leaf_scatter, union_bitmap
 
 # Each case: keyword arguments of ``_case`` beside the defaults (L=3, D=2,
@@ -205,12 +209,32 @@ def _same_lists(got, want):
         assert a.dtype == np.int64 and np.array_equal(a, b)
 
 
+def _flat(eng, query):
+    """The flat f64 filter's lists for ``query``, and the index entries
+    that some query row hits.  A hit passes its block's summaries and
+    prune, so those entries are the search's ``hit_rows``."""
+    eps = eng.config.epsilon
+    if isinstance(query, PGEQuery):
+        v = eng.vertices
+        lists = pge_candidates(v.labels, v.degrees, eng.group,
+                               eng.label_group, query.labels, query.degrees,
+                               query.group, query.label_group,
+                               range(len(query.labels)), epsilon=eps)
+        return lists, len(np.unique(np.concatenate(lists)))
+    data = gen_pde(eng.vertices, torch.as_tensor(eng.paths).numpy())
+    rows = query.plan_rows
+    lists = pe_candidates(data, query.pde, rows, query.num_query_vertices,
+                          epsilon=eps)
+    hit = pe_pair_mask(data, query.pde, rows, eps).any(0)
+    return lists, int(hit.sum())
+
+
 @pytest.mark.parametrize("kind",
                          ["table", "streamed", "array", "pge", "table_e6"])
 def test_device_union_fuses_the_leaf_test(graph, kind):
-    """The PE table layouts' device union runs phase 2 as the fused leaf
-    test, at the served VDE width and a wider one: the host union's lists
-    and hit rows, every surviving row taken (``leaf_fused_rows``), one
+    """The PE table layouts run phase 2 as the fused leaf test, at the
+    served VDE width and a wider one: the flat f64 filter's lists and
+    hit rows, every surviving row taken (``leaf_fused_rows``), one
     launch over the resident table and a launch a pool-sized chunk
     streamed (a pool of 5 blocks, fewer than survive); the array layout
     and PGE keep the mask path."""
@@ -219,13 +243,11 @@ def test_device_union_fuses_the_leaf_test(graph, kind):
     fused = kind in ("table", "streamed", "table_e6")
     survived = 0
     for query in _queries(eng, queries):
-        host = eng.searcher.search(query, union="host")
-        st_host = dict(eng.searcher.last_stats)
-        got = eng.searcher.search(query, union="device")
+        got = eng.searcher.search(query)
         st = eng.searcher.last_stats
-        _same_lists(got, host)
-        assert st["hit_rows"] == st_host["hit_rows"]
-        assert st_host["leaf_fused_rows"] == 0
+        want, hit_rows = _flat(eng, query)
+        _same_lists(got, want)
+        assert st["hit_rows"] == hit_rows
         block = 16 if kind == "pge" else BLOCK
         assert st["leaf_fused_rows"] == (st["survived"] * block if fused
                                          else 0)
@@ -240,12 +262,12 @@ def test_device_union_fuses_the_leaf_test(graph, kind):
 @pytest.mark.parametrize("kind", ["table", "streamed"])
 def test_nothing_survives(graph, kind):
     """A query row whose labels no path has: no block survives, and the
-    fused device union returns empty lists with nothing taken."""
+    fused search returns empty lists with nothing taken."""
     g, queries = graph
     eng = _engine(kind, g)
     query = _queries(eng, queries)[0]
     query.pde.labels[:] = 10 ** 6
-    got = eng.searcher.search(query, union="device")
+    got = eng.searcher.search(query)
     st = eng.searcher.last_stats
     assert st["survived"] == st["leaf_fused_rows"] == st["hit_rows"] == 0
     assert len(got) == query.num_query_vertices and not any(map(len, got))
@@ -279,7 +301,7 @@ def test_kernel_equals_plain_on_card(cuda_device, case):
 @pytest.mark.parametrize("kind", ["table", "streamed", "table_e6"])
 def test_search_on_card_equals_plain(graph, cuda_device, kind):
     """The PE table layouts on the card, at the served VDE width and a
-    wider one: the fused device union's lists and counters equal the
+    wider one: the fused search's lists and counters equal the
     plain path's on the CPU, a launch a chunk."""
     g, queries = graph
     card, cpu = _engine(kind, g, cuda_device, 5), _engine(kind, g, "cpu", 5)

@@ -174,8 +174,8 @@ def test_sharded_search(search_expected, tmp_path, n):
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_sharded_packed_or(tmp_path, n):
-    """The device union's bit-packed bitmaps OR-ed over n ranks equal
-    the unsharded search's (ops/union_bitmap.py, ``or_words_``)."""
+    """The search's bit-packed bitmaps OR-ed over n ranks equal the
+    unsharded search's (ops/union_bitmap.py, ``or_words_``)."""
     _ran(run_ranks(n, "tests.torch_mp_worker:packed_or", {},
                    group_device="cpu", timeout_s=TIMEOUT_S,
                    store_dir=str(tmp_path)), "packed_or", n)

@@ -2,10 +2,10 @@
 (``benchmark/reference/pge.py``, NumPy, which shares no code with the
 port): on seeded generated graphs, through the path the benchmark
 serves (``offline(device=True)``, ``build_index``, ``attach_device``),
-``online`` and ``online_many`` with either union give the reference's
-candidate sets and counts, the query rows the search is handed carry the
-reference's boxes, and every search's ``label_run_blocks`` bounds its
-``survived``."""
+``online`` and ``online_many`` with either refinement engine give the
+reference's candidate sets and counts, the query rows the search is
+handed carry the reference's boxes, and every search's
+``label_run_blocks`` bounds its ``survived``."""
 
 import numpy as np
 import pytest
@@ -49,14 +49,15 @@ def _graph(q):
 
 
 @pytest.mark.parametrize("serve", ["online", "online_many"])
-@pytest.mark.parametrize("union", ["device", "host"])
-def test_candidates_and_counts_equal_the_reference(deployment, serve, union):
+@pytest.mark.parametrize("engine", ["native", "python"])
+def test_candidates_and_counts_equal_the_reference(deployment, serve,
+                                                   engine):
     eng, data, queries = deployment
     graphs = [_graph(q) for q in queries]
     if serve == "online":
-        results = [eng.online(g, union=union) for g in graphs]
+        results = [eng.online(g, engine=engine) for g in graphs]
     else:
-        results = eng.online_many(graphs, union=union)
+        results = eng.online_many(graphs, engine=engine)
     assert len(results) == len(queries)
     for (q_edges, q_labels), res in zip(queries, results):
         cands, count = _reference(data, q_edges, q_labels)

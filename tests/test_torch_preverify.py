@@ -117,14 +117,18 @@ def test_semijoin_prune_rounds_and_csr_reuse(graphs, engines, monkeypatch):
     assert [len(c) for c in none] == [0] * q.num_vertices
 
 
-@pytest.mark.parametrize("union", ["host", "device"])
-def test_pge_counts_unchanged_under_preverify(graphs, engines, union):
+@pytest.mark.parametrize("serve", ["online", "online_many"])
+def test_pge_counts_unchanged_under_preverify(graphs, engines, serve):
     g, queries = graphs
     ref, port = engines["pge"]
+    if serve == "online":
+        plains = [port.online(q) for q in queries]
+        gots = [port.online(q, preverify=2) for q in queries]
+    else:
+        plains = port.online_many(queries)
+        gots = port.online_many(queries, preverify=2)
     shrunk = 0
-    for q in queries:
-        plain = port.online(q, union=union)
-        got = port.online(q, union=union, preverify=2)
+    for q, plain, got in zip(queries, plains, gots):
         want = ref.online(q, engine="native", preverify=2)
         assert got.answer_count == plain.answer_count == want.answer_count
         _same(got.candidates, want.candidates)
@@ -146,7 +150,7 @@ def test_pe_preverify_equals_jax(graphs, engines, preverify_rounds):
     g, queries = graphs
     ref, port = engines["pe"]
     for q in queries:
-        got = port.online(q, union="device", preverify=preverify_rounds)
+        got = port.online(q, preverify=preverify_rounds)
         want = ref.online(q, engine="native", preverify=preverify_rounds)
         _same(got.candidates, want.candidates)
         assert got.answer_count == want.answer_count
@@ -156,7 +160,7 @@ def test_pe_preverify_equals_jax(graphs, engines, preverify_rounds):
 def test_online_many_preverify_equals_jax(graphs, engines, variant):
     g, queries = graphs
     ref, port = engines[variant]
-    got = port.online_many(queries, union="device", preverify=2)
+    got = port.online_many(queries, preverify=2)
     want = ref.online_many(queries, engine="native", preverify=2,
                            union="device")
     single = [port.online(q, preverify=2) for q in queries]
@@ -166,7 +170,7 @@ def test_online_many_preverify_equals_jax(graphs, engines, variant):
         assert a.answer_count == b.answer_count == c.answer_count
         assert list(a.timings_ms) == ["query_plan", "search", "preverify",
                                       "refine"]
-    off = port.online_many(queries, union="device")
+    off = port.online_many(queries)
     assert all(list(r.timings_ms) == ["query_plan", "search", "refine"]
                for r in off)
     # One query, and the python engine, take the unthreaded path.

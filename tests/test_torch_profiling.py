@@ -63,15 +63,14 @@ def test_engine_stages_are_ranges(tmp_path):
 def test_online_many_stages_are_ranges_on_the_calling_thread(tmp_path):
     """``online_many``'s stages are ranges on the thread that called it,
     refinement's too though its queries run in pool threads, and the
-    search's four spans (the host union's, which has all four) lie
-    inside its ``search`` ranges."""
+    search's three spans lie inside its ``search`` ranges."""
     import threading
     g = powerlaw_graph(300, 1200, 4, seed=2, max_degree=40)
     qs = [sample_query(g, 4, seed=s) for s in range(3)]
     eng = PGEEngine(PGEConfig.from_cli(l=2, e=2), g, "cpu").offline()
     eng.build_index(block_size=16).attach_device("cpu")
     with profiling.trace(str(tmp_path), "cpu") as prof:
-        rs = eng.online_many(qs, union="host")
+        rs = eng.online_many(qs)
     assert all(list(r.timings_ms) == ["query_plan", "search", "refine"]
                for r in rs)
     with open(prof.trace_path) as f:
@@ -84,7 +83,7 @@ def test_online_many_stages_are_ranges_on_the_calling_thread(tmp_path):
     search = [ev for ev in ranges if ev["name"] == "search"]
     spans = [ev for ev in ranges if ev["name"].startswith("search.")]
     assert {ev["name"] for ev in spans} == {
-        "search.filter", "search.phase2", "search.copy", "search.extract"}
+        "search.filter", "search.phase2", "search.extract"}
     for ev in spans:
         assert any(s["tid"] == ev["tid"] and s["ts"] <= ev["ts"]
                    and ev["ts"] + ev["dur"] <= s["ts"] + s["dur"]

@@ -48,11 +48,10 @@ def case():
 
 def _assert_port_answers(idx, queries, want):
     for (q, plan, n), w in zip(queries, want):
-        for union in ("host", "device"):
-            got = idx.search(PEQuery(q, plan, n), union=union)
-            assert len(got) == len(w)
-            for a, b in zip(got, w):
-                assert np.array_equal(a, b)
+        got = idx.search(PEQuery(q, plan, n))
+        assert len(got) == len(w)
+        for a, b in zip(got, w):
+            assert np.array_equal(a, b)
 
 
 def _assert_jax_answers(idx, queries, want):

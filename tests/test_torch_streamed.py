@@ -138,16 +138,16 @@ def test_streamed_build_takes_a_tensor_and_no_paths(case):
 
 
 # -- search --------------------------------------------------------------
-@pytest.mark.parametrize("union", ["host", "device"])
-def test_streamed_search_uncached_parity(case, ref, union, monkeypatch):
+@pytest.mark.parametrize("ref_union", ["host", "device"])
+def test_streamed_search_uncached_parity(case, ref, ref_union, monkeypatch):
     queries, want = case[3:]
     port = _streamed(case, cache=False)
     monkeypatch.setenv("GNNPE_STREAM_CACHE", "0")
     ref._cache = None
     for q, w in zip(queries, want):
-        got = port.search(PEQuery(*q), union=union)
+        got = port.search(PEQuery(*q))
         _same(got, w)
-        _same(got, ref.search(*q, union=union))
+        _same(got, ref.search(*q, union=ref_union))
         st = port.last_stats
         assert "cache_hits" not in st and "cache_hits" not in ref.last_stats
         assert {k: st[k] for k in ("phase1", "survived")} == \
@@ -157,8 +157,8 @@ def test_streamed_search_uncached_parity(case, ref, union, monkeypatch):
     assert port._cache is None and "cache_pool" not in port.resident_tensors()
 
 
-@pytest.mark.parametrize("union", ["host", "device"])
-def test_streamed_cache_evicts_and_hits(case, ref, union, monkeypatch):
+@pytest.mark.parametrize("ref_union", ["host", "device"])
+def test_streamed_cache_evicts_and_hits(case, ref, ref_union, monkeypatch):
     """A pool that holds the largest query's blocks and not all queries'
     together: misses, then evictions across queries, then hits on a
     repeat; capacity as gnnpe_tpu's for the same budget."""
@@ -176,9 +176,9 @@ def test_streamed_cache_evicts_and_hits(case, ref, union, monkeypatch):
     ref._cache = None
     port = _streamed(case, cache_bytes=budget)
     for i, (q, w) in enumerate(zip(queries, want)):
-        got = port.search(PEQuery(*q), union=union)
+        got = port.search(PEQuery(*q))
         _same(got, w)
-        _same(got, ref.search(*q, union=union))
+        _same(got, ref.search(*q, union=ref_union))
         st = port.last_stats
         assert st["cache_misses"] > 0
         assert st["cache_hits"] + st["cache_misses"] == st["survived"]
@@ -193,11 +193,11 @@ def test_streamed_cache_evicts_and_hits(case, ref, union, monkeypatch):
     assert cache.buf.shape == (cap * BLOCK, 3)
     assert port.resident_tensors()["cache_pool"] is cache.buf
     # The last query again: its blocks are the most recently used.
-    _same(port.search(PEQuery(*queries[-1]), union=union), want[-1])
+    _same(port.search(PEQuery(*queries[-1])), want[-1])
     assert port.last_stats["cache_misses"] == 0
     assert port.last_stats["cache_hits"] == survived[-1]
     assert port.last_stats["uploaded_bytes"] == 0
-    ref.search(*queries[-1], union=union)
+    ref.search(*queries[-1], union=ref_union)
     assert ref.last_stats["cache_hits"] > 0
     # Every pooled block holds its host rows.
     pool = cache.buf.view(cap, BLOCK, 3).numpy()
@@ -206,19 +206,21 @@ def test_streamed_cache_evicts_and_hits(case, ref, union, monkeypatch):
         assert np.array_equal(pool[slot], host[blk])
 
 
-@pytest.mark.parametrize("union", ["host", "device"])
-def test_small_pool_shrinks_the_chunk(case, union):
+@pytest.mark.parametrize("pool_blocks", [5, 1])
+def test_small_pool_shrinks_the_chunk(case, pool_blocks):
     """A pool smaller than a query's surviving blocks is not switched
     off: the chunk shrinks to the pool, whose blocks are protected while
-    their chunk is read."""
+    their chunk is read; down to a pool of one block, the smallest that
+    holds a block."""
     queries, want = case[3:]
-    port = _streamed(case, cache_bytes=5 * _block_bytes(case))
+    port = _streamed(case, cache_bytes=pool_blocks * _block_bytes(case))
     for q, w in zip(queries, want):
-        _same(port.search(PEQuery(*q), union=union), w)
+        _same(port.search(PEQuery(*q)), w)
         st = port.last_stats
         assert st["survived"] > 5
-        assert st["chunks"] == -(-st["survived"] // 5)
-    assert port._cache.capacity == 5 and port._cache.evictions > 0
+        assert st["chunks"] == -(-st["survived"] // pool_blocks)
+    assert port._cache.capacity == pool_blocks
+    assert port._cache.evictions > 0
     with pytest.raises(ValueError, match="holds no block"):
         _streamed(case, cache_bytes=_block_bytes(case) - 1).search(
             PEQuery(*queries[0]))
@@ -291,7 +293,7 @@ def test_degrade_cache(case):
     assert port.degrade_cache(0.5) == budget / 2
     assert port._cache is None and "cache_pool" not in port.resident_tensors()
     for q, w in zip(queries, want):
-        _same(port.search(PEQuery(*q), union="device"), w)
+        _same(port.search(PEQuery(*q)), w)
     assert port._cache.capacity == 32
     assert port.degrade_cache(0.25) == budget / 8
 
@@ -359,7 +361,7 @@ def test_cuda_device_raises_without_cuda(case):
 def test_streamed_search_and_preverify_spmm_on_cuda():
     """On the card: the streamed search through the pool (misses, then
     evictions, then hits) and through per-chunk uploads equals table
-    mode under both unions, and kernel A1 at the pre-verify shape (f32,
+    mode, and kernel A1 at the pre-verify shape (f32,
     D = 8, a 0/1 matrix) equals its plain version bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -385,15 +387,14 @@ def test_streamed_search_and_preverify_spmm_on_cuda():
     pooled = StreamedPESearch.build_from_paths(
         paths, vertices, dev, block_size=64,
         cache_bytes=max(survived) * 64 * 3 * 4)
-    for union in ("host", "device"):
-        for q in queries:
-            want = table.search(PEQuery(*q), union=union)
-            _same(pooled.search(PEQuery(*q), union=union), want)
-            _same(plain.search(PEQuery(*q), union=union), want)
-            # Again at once: every block is in the pool.
-            _same(pooled.search(PEQuery(*q), union=union), want)
-            assert pooled.last_stats["cache_misses"] == 0
-            assert pooled.last_stats["uploaded_bytes"] == 0
+    for q in queries:
+        want = table.search(PEQuery(*q))
+        _same(pooled.search(PEQuery(*q)), want)
+        _same(plain.search(PEQuery(*q)), want)
+        # Again at once: every block is in the pool.
+        _same(pooled.search(PEQuery(*q)), want)
+        assert pooled.last_stats["cache_misses"] == 0
+        assert pooled.last_stats["uploaded_bytes"] == 0
     cache = pooled._cache
     assert cache.buf.is_cuda and cache.misses > 0 and cache.hits > 0
     assert cache.evictions > 0

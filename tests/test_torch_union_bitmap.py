@@ -1,8 +1,8 @@
 """The index search's candidate union on a bit-packed bitmap
 (gnnpe_tpu_torch/ops/union_bitmap.py, csrc/union_bitmap.cu): ``scatter``
-and ``compact`` against a numpy reference at the layout's edges, and the
-device union against the host union through every searcher, one query
-at a time and stacked.
+and ``compact`` against a numpy reference at the layout's edges, and
+every searcher's union against the flat f64 filter, one query at a time
+and stacked.
 
 This file imports no JAX, so its ``cuda`` cases run on the card:
 
@@ -14,8 +14,12 @@ import pytest
 import torch
 
 from gnnpe_tpu_torch.config import PEConfig, PGEConfig
+from gnnpe_tpu_torch.embed.pde import gen_pde
 from gnnpe_tpu_torch.engine import PEEngine, PGEEngine
+from gnnpe_tpu_torch.index.device_packed import PGEQuery
 from gnnpe_tpu_torch.io.datasets import powerlaw_graph, sample_query
+from gnnpe_tpu_torch.match.device_filter import pe_candidates_device
+from gnnpe_tpu_torch.match.filter import pe_pair_mask, pge_candidates
 from gnnpe_tpu_torch.ops import leaf_scatter, union_bitmap
 
 
@@ -168,20 +172,41 @@ def _queries(eng, queries):
             + [eng._stack([eng._query_table(q) for q in queries])])
 
 
+def _flat(eng, query):
+    """The flat filter's lists for ``query`` (PE: ``pe_candidates_device``
+    over every path; PGE: the f64 host filter), and the index entries
+    that some query row hits.  A hit passes its block's summaries and
+    prune, so those entries are the search's ``hit_rows``."""
+    eps = eng.config.epsilon
+    if isinstance(query, PGEQuery):
+        v = eng.vertices
+        lists = pge_candidates(v.labels, v.degrees, eng.group,
+                               eng.label_group, query.labels, query.degrees,
+                               query.group, query.label_group,
+                               range(len(query.labels)), epsilon=eps)
+        return lists, len(np.unique(np.concatenate(lists)))
+    data = gen_pde(eng.vertices, torch.as_tensor(eng.paths).numpy())
+    rows = query.plan_rows
+    lists = pe_candidates_device(data, query.pde, rows,
+                                 query.num_query_vertices, "cpu", eps)
+    return lists, int(pe_pair_mask(data, query.pde, rows, eps).any(0).sum())
+
+
 @pytest.mark.parametrize("kind", ["array", "table", "streamed", "pge"])
-def test_device_union_equals_host_union(graph, kind):
+def test_union_equals_the_flat_filter(graph, kind):
+    """Every searcher's one union, one query at a time and stacked: the
+    flat filter's lists, its hit entries as ``hit_rows``, and
+    ``cand_ids`` the lists' length."""
     g, queries = graph
     eng = _engine(kind, g)
     hits = 0
     for query in _queries(eng, queries):
-        host = eng.searcher.search(query, union="host")
-        st_host = dict(eng.searcher.last_stats)
-        dev = eng.searcher.search(query)            # the default
+        got = eng.searcher.search(query)
         st = eng.searcher.last_stats
-        _same_lists(dev, host)
-        assert (st_host["union"], st["union"]) == ("host", "device")
-        assert st["hit_rows"] == st_host["hit_rows"]
-        assert st["cand_ids"] == st_host["cand_ids"] == sum(map(len, dev))
+        want, hit_rows = _flat(eng, query)
+        _same_lists(got, want)
+        assert st["hit_rows"] == hit_rows
+        assert st["cand_ids"] == sum(map(len, got))
         hits += st["hit_rows"]
     assert hits > 0
 
@@ -236,9 +261,9 @@ def test_kernels_equal_plain_on_card(cuda_device, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["table", "pge"])
 def test_search_on_card_equals_plain(graph, cuda_device, monkeypatch, kind):
-    """A PE table index and a PGE index on the card: the device union's
-    lists and counters equal the plain path's on the CPU and the host
-    union's, with the union's launches counted (the PE table index's
+    """A PE table index and a PGE index on the card: the search's lists
+    and counters equal the plain path's on the CPU, with the union's
+    launches counted (the PE table index's
     phase 2 is one fused leaf launch and no union scatter) and no
     ``torch.cuda.synchronize`` in a search."""
     g, queries = graph
@@ -267,6 +292,5 @@ def test_search_on_card_equals_plain(graph, cuda_device, monkeypatch, kind):
         for key in ("hit_rows", "cand_ids", "copied_bytes", "survived",
                     "leaf_fused_rows"):
             assert st[key] == cpu.searcher.last_stats[key], key
-        _same_lists(got, card.searcher.search(cq, union="host"))
     assert count[0] == 0
     inner()                     # a fault in any launch surfaces here

@@ -70,9 +70,9 @@ def _check(result, single, ref, what):
 
 def search(rank, world, expected):
     """Every sharded search on ``world`` ranks: flat and packed, PE
-    (array, table, streamed with the cache on and off) and PGE, both
-    unions, ``online`` and ``online_many``, sharded ``save``/``load``,
-    and shards with no rows."""
+    (array, table, streamed with the cache on and off) and PGE,
+    ``online`` and ``online_many``, sharded ``save``/``load``, and shards
+    with no rows."""
     exp = _load(expected)
     g, queries = search_graph()
     mesh = make_mesh(world, axes=("graph",), shape=(world,),
@@ -117,15 +117,13 @@ def search(rank, world, expected):
         if how != "flat":
             lo, hi = eng.searcher.block_range
             assert eng.searcher.num_blocks == hi - lo
-        for union in ("host", "device"):
-            for i, q in enumerate(queries):
-                _check(eng.online(q, engine="python", union=union),
-                       want[variant][i], exp[variant][i],
-                       f"{variant} {how} {union} query {i}")
-            many = eng.online_many(queries, engine="python", union=union)
-            for i, r in enumerate(many):
-                _check(r, want_many[variant][i], exp[variant][i],
-                       f"{variant} {how} {union} online_many {i}")
+        for i, q in enumerate(queries):
+            _check(eng.online(q, engine="python"), want[variant][i],
+                   exp[variant][i], f"{variant} {how} query {i}")
+        many = eng.online_many(queries, engine="python")
+        for i, r in enumerate(many):
+            _check(r, want_many[variant][i], exp[variant][i],
+                   f"{variant} {how} online_many {i}")
         if how == "table":
             # Collective save: one file, as a single device writes it.
             path = os.path.join(tmp, f"index{world}.npz")
@@ -139,8 +137,8 @@ def search(rank, world, expected):
             assert torch.equal(part.d_vids, eng.searcher.d_vids)
             query = eng._stack([eng._query_table(queries[0])])
             for s in (whole, part):
-                _same(s.search(query, union="device"),
-                      want["pe"][0].candidates, "loaded index")
+                _same(s.search(query), want["pe"][0].candidates,
+                      "loaded index")
         if how.startswith("streamed"):
             assert isinstance(eng.searcher, StreamedPESearch)
             spill = os.path.join(tmp, f"spill{world}_{rank}")
@@ -157,11 +155,9 @@ def search(rank, world, expected):
     eng.searcher.prefill_cache()        # the pool holds every block
     eng.attach_mesh(mesh, packed=True)
     assert eng.searcher.block_range is not None
-    for union in ("host", "device"):
-        for i, q in enumerate(queries):
-            _check(eng.online(q, engine="python", union=union),
-                   want["pe"][i], exp["pe"][i],
-                   f"streamed, pooled then cut, {union} query {i}")
+    for i, q in enumerate(queries):
+        _check(eng.online(q, engine="python"), want["pe"][i], exp["pe"][i],
+               f"streamed, pooled then cut, query {i}")
     eng.searcher.close()
 
     # Shards without rows: fewer paths (blocks, vertices) than ranks.
@@ -180,18 +176,17 @@ def search(rank, world, expected):
     if world == 4:
         assert tiny_flat.row_range == (3, 3) if rank == 3 else True
         assert tiny_packed.num_blocks == (1 if rank < 2 else 0)
-    for union in ("host", "device"):
-        ref = tiny_single.search(query, union=union)
-        _same(tiny_flat.search(query, union=union), ref, "tiny flat")
-        _same(tiny_packed.search(query, union=union), ref, "tiny packed")
+    ref = tiny_single.search(query)
+    _same(tiny_flat.search(query), ref, "tiny flat")
+    _same(tiny_packed.search(query), ref, "tiny packed")
     print(f"search rank {rank}/{world} OK")
 
 
 def packed_or(rank, world):
-    """The device union's packed bitmaps OR-ed over the ranks, exactly:
+    """The search's packed bitmaps OR-ed over the ranks, exactly:
     random words (bit 31 set, so negative int32s, included) against
     numpy's OR of every rank's, then a table-mode PE index and a PGE
-    index cut into block ranges, whose device union equals the unsharded
+    index cut into block ranges, whose union equals the unsharded
     search's, one query at a time and stacked, with the ranks' hit rows
     summing to the unsharded search's."""
     mesh = make_mesh(world, axes=("graph",), shape=(world,), device="cpu")
@@ -224,7 +219,6 @@ def packed_or(rank, world):
             st = sharded.last_stats
             hits = gather_objects(st["hit_rows"] if st else 0, group)
             assert sum(hits) == whole_hits[i], (name, i, hits, whole_hits)
-            assert st is None or st["union"] == "device"
             assert union_bitmap.LAUNCHES == launches    # CPU: plain path
     print(f"packed_or rank {rank}/{world} OK")
 
