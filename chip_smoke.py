@@ -6,7 +6,8 @@
 1. Requires a CUDA device and prints the card's name and power limit.
 2. Builds the CUDA kernels from gnnpe_tpu_torch/csrc (A1 spmm_csr, A2
    ell_gather_sum, the readout's segment_sum and the search's
-   union_bitmap and leaf_scatter; and the host C++ refinement engine).
+   union_bitmap, leaf_scatter and block_filter; and the host C++
+   refinement engine).
 3. Kernel phase: the neighbour-sum SpMM (A1) against its plain PyTorch
    version on the card, on the dblp-rung graph — f64 at the VDE width
    (D=2), f32 at D=128 and f32 at D=8 on a 0/1 matrix (the pre-verify's
@@ -53,9 +54,17 @@
    on the card — words and hit rows bit-equal, and equal to the
    search's union where every chunk was replayed — and timed in turns
    plain, kernel, kernel, plain beside the bytes bound.
-   Every engine phase sets the union's and the leaf test's launch
-   counts to 0 before its searches and holds them to the launches that
-   its searches' ``last_stats`` account for.
+   Filter phase, on the table index: phase 1, the signature-run prune
+   and the selection of the same two searches, each one call of the
+   fused filter (``block_filter.filter``: count and scan, the wait, the
+   write), recorded as the search makes it and replayed through the
+   kernels and through their plain version on the card — survivors,
+   gate rows and both counts bit-equal, equal to the search's — and
+   timed in turns plain, kernel, kernel, plain by CUDA events beside the
+   bytes bound.
+   Every engine phase sets the union's, the leaf test's and the filter's
+   launch counts to 0 before its searches and holds them to the launches
+   that its searches' ``last_stats`` account for.
    PE streamed phase: the same index served past device memory.  The
    card would hold the table many times over, so the phase forces
    ``build_index(table=True, resident=False)``: the bucketed build on
@@ -271,7 +280,7 @@ QUERY_SIZE = 8
 MODE_QUERIES = range(100, 164)   # the PE layouts' search comparison
 BLOCK_SIZE = 512
 KERNELS = ("spmm_csr", "ell_gather_sum", "segment_sum", "union_bitmap",
-           "leaf_scatter")
+           "leaf_scatter", "block_filter")
 PREVERIFY_ROUNDS = 2
 # The streamed phase's block pool: about a quarter of the dblp index's
 # 118,711 blocks, so that misses, hits and evictions all happen.
@@ -495,32 +504,39 @@ def _percentiles(vals):
 
 
 def _union_launches(prefix, stats, block_size) -> tuple:
-    """The union_bitmap and leaf_scatter launches that one search made,
-    from its ``last_stats``: a union scatter a phase-2 chunk,
-    or where the leaf test ran fused (``leaf_fused_rows``, which must
-    then be every surviving row) a leaf_scatter launch a chunk instead;
-    the count and scan, and the write where any id came out; none where
-    no block survived (or the query had no rows, and no stats)."""
+    """The union_bitmap, leaf_scatter and block_filter launches that one
+    search made, from its ``last_stats``: where the filter ran fused
+    (``filter_fused_blocks``, which must then be every block) its count
+    and scan, and its write where any block survived; a union scatter a
+    phase-2 chunk, or where the leaf test ran fused (``leaf_fused_rows``,
+    which must then be every surviving row) a leaf_scatter launch a chunk
+    instead; the count and scan, and the write where any id came out;
+    none where the query had no rows (and no stats)."""
     if stats is None:
-        return 0, 0
+        return 0, 0, 0
+    check(stats["filter_fused_blocks"] in (0, stats["blocks"]),
+          f"{prefix}: the fused filter scanned "
+          f"{stats['filter_fused_blocks']} of {stats['blocks']} blocks")
+    filt = (2 + (stats["survived"] > 0)) if stats["filter_fused_blocks"] else 0
     if stats["survived"] == 0:
-        return 0, 0
+        return 0, 0, filt
     fused = stats["leaf_fused_rows"] > 0
     check(stats["leaf_fused_rows"] in (0, stats["survived"] * block_size),
           f"{prefix}: the fused leaf test took {stats['leaf_fused_rows']} "
           f"rows of {stats['survived']} surviving blocks")
     compaction = 2 + (stats["cand_ids"] > 0)
     if fused:
-        return compaction, stats["chunks"]
-    return stats["chunks"] + compaction, 0
+        return compaction, stats["chunks"], filt
+    return stats["chunks"] + compaction, 0, filt
 
 
 def _drive(eng, queries, device, wall, prefix, block_size, offline_kw,
            build_kw):
     """The main path: offline (unless the engine was handed its paths),
     index, upload, online x N, online_many.  Returns the runs, each
-    query's surviving blocks, and the union_bitmap and leaf_scatter
-    launches that the searches' ``last_stats`` account for."""
+    query's surviving blocks, and the union_bitmap, leaf_scatter and
+    block_filter launches that the searches' ``last_stats`` account
+    for."""
     with wall.stage(f"{prefix}.offline"):
         if getattr(eng, "paths", None) is None:
             eng.offline(**offline_kw)
@@ -529,7 +545,7 @@ def _drive(eng, queries, device, wall, prefix, block_size, offline_kw,
     with wall.stage(f"{prefix}.attach_device"):
         eng.attach_device(device)
     runs = {"online": []}
-    survived, union = [], np.zeros(2, np.int64)
+    survived, union = [], np.zeros(3, np.int64)
     for q in queries:
         runs["online"].append(eng.online(q))
         survived.append(eng.searcher.last_stats["survived"])
@@ -542,7 +558,7 @@ def _drive(eng, queries, device, wall, prefix, block_size, offline_kw,
 
 
 def _summarise(prefix, eng, runs, survived, wall, launches, union_launches,
-               leaf_launches, record) -> None:
+               leaf_launches, filter_launches, record) -> None:
     tensors = eng.searcher.resident_tensors()
     devices = sorted({str(t.device) for t in tensors.values()})
     single = runs["online"]
@@ -561,6 +577,7 @@ def _summarise(prefix, eng, runs, survived, wall, launches, union_launches,
                             for t in tensors.values())),
         index_devices=devices, spmm_launches=launches,
         union_launches=union_launches, leaf_launches=leaf_launches,
+        filter_launches=filter_launches,
         answers=[r.answer_count for r in single],
         candidates=[int(sum(map(len, r.candidates))) for r in single])
     if hasattr(eng, "paths"):
@@ -574,23 +591,26 @@ def _summarise(prefix, eng, runs, survived, wall, launches, union_launches,
 def _engine_phase(prefix, eng, queries, device, record, block_size,
                   offline_kw=None, build_kw=None):
     """Runs ``_drive`` with the launch counts of spmm_csr, of the
-    union's kernels and of the fused leaf test set to 0 just before and
-    read just after; records the union's as ``union_launches`` and the
-    leaf test's as ``leaf_launches``, each held to what the searches
-    account for (the leaf test's > 0 exactly on the PE table layouts).
-    Returns (runs, spmm_csr launches)."""
+    union's kernels, of the fused leaf test and of the fused filter set
+    to 0 just before and read just after; records the union's as
+    ``union_launches``, the leaf test's as ``leaf_launches`` and the
+    filter's as ``filter_launches``, each held to what the searches
+    account for (the leaf test's and the filter's > 0 exactly on the PE
+    table layouts).  Returns (runs, spmm_csr launches)."""
     from gnnpe_tpu_torch.index import device_packed as dp
-    from gnnpe_tpu_torch.ops import leaf_scatter, spmm, union_bitmap
+    from gnnpe_tpu_torch.ops import (block_filter, leaf_scatter, spmm,
+                                     union_bitmap)
     from gnnpe_tpu_torch.utils.timers import StageTimer
     wall = StageTimer(device)
     spmm.LAUNCHES = union_bitmap.LAUNCHES = leaf_scatter.LAUNCHES = 0
-    runs, survived, (union_want, leaf_want) = _drive(
+    block_filter.LAUNCHES = 0
+    runs, survived, (union_want, leaf_want, filter_want) = _drive(
         eng, queries, device, wall, prefix, block_size, offline_kw or {},
         build_kw or {})
     launches, union = spmm.LAUNCHES, union_bitmap.LAUNCHES
-    leaf = leaf_scatter.LAUNCHES
+    leaf, filt = leaf_scatter.LAUNCHES, block_filter.LAUNCHES
     _summarise(prefix, eng, runs, survived, wall, launches, union, leaf,
-               record)
+               filt, record)
     check(launches > 0, f"{prefix} phase launched no spmm_csr kernel")
     check(union == union_want > 0,
           f"{prefix} phase: {union} union_bitmap launches, its "
@@ -599,6 +619,9 @@ def _engine_phase(prefix, eng, queries, device, record, block_size,
     check(leaf == leaf_want and (leaf > 0) == table,
           f"{prefix} phase: {leaf} leaf_scatter launches, its searches "
           f"account for {leaf_want}")
+    check(filt == filter_want and (filt > 0) == table,
+          f"{prefix} phase: {filt} block_filter launches, its searches "
+          f"account for {filter_want}")
     check(record[prefix]["index_devices"] == [str(eng.searcher.device)],
           f"{prefix} index tensors on {record[prefix]['index_devices']}")
     return runs, launches
@@ -1184,6 +1207,79 @@ def union_phase(eng, queries, device, record) -> dict:
         del calls, args, words, hits, run
     record["union"] = dict(rec, rows=dict(leaf_rows, **union_rows))
     return leaf_rows, union_rows
+
+
+def filter_phase(eng, queries, device, record) -> dict:
+    """PE phase 1, the signature-run prune and the selection at the table
+    index's main-path shapes: one online search (query 0) and the stacked
+    search of every query, each one call of the fused filter
+    (``block_filter.filter``, its arguments recorded as the search makes
+    it; its launches and ``filter_fused_blocks`` held to the search),
+    replayed through the kernels and through ``filter_plain`` on the
+    card: survivors, gate rows and both counts bit-equal, the counts the
+    search's.  Timed in turns plain, kernel, kernel, plain by CUDA
+    events, host path and the wait included, beside its bytes bound:
+    every block summary and the query rows and runs read once, the
+    survivors' ids and gate rows written once.  Returns the kernels
+    record's rows, ``<online|batch>_filter``."""
+    import torch
+    from gnnpe_tpu_torch.ops import block_filter as bf
+    searcher = eng.searcher
+    tables = {"online": eng._stack([eng._query_table(queries[0])]),
+              "batch": eng._stack([eng._query_table(q) for q in queries])}
+    rows, rec, inner = {}, {}, bf.filter
+    for name, table in tables.items():
+        calls = []
+
+        def keep(*args):
+            calls.append(args)
+            return inner(*args)
+        bf.filter = keep
+        launches = bf.LAUNCHES
+        try:
+            searcher.search(table)
+        finally:
+            bf.filter = inner
+        stats = dict(searcher.last_stats)
+        check(len(calls) == 1 and stats["survived"] > 0
+              and bf.LAUNCHES - launches == 3
+              and stats["filter_fused_blocks"] == stats["blocks"],
+              f"filter {name}: {len(calls)} fused calls, "
+              f"{bf.LAUNCHES - launches} launches, "
+              f"{stats['filter_fused_blocks']} of {stats['blocks']} blocks")
+        args = calls[0]
+        got, plain = bf.filter(*args), bf.filter_plain(*args)
+        check(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+              and got[2:] == plain[2:]
+              == (stats["phase1"], stats["survived"]),
+              f"filter {name}: the kernels' survivors, gate rows or counts "
+              "differ from filter_plain's or the search's")
+        (nb, w), (q_rows, l) = args[0].shape, args[6].shape
+        nbytes = (nb * (12 * w + 4 * l)
+                  + sum(t.numel() * t.element_size() for t in args[4:])
+                  + got[3] * (8 + q_rows))
+        p1, k1, k2, p2 = (cuda_ms(lambda: bf.filter_plain(*args), 3),
+                          cuda_ms(lambda: bf.filter(*args), 20),
+                          cuda_ms(lambda: bf.filter(*args), 20),
+                          cuda_ms(lambda: bf.filter_plain(*args), 3))
+        row = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                   turns_ms=[p1, k1, k2, p2],
+                   bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
+                   bytes_moved=int(nbytes), library_ms=None, max_abs_err=0.0)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows[f"{name}_filter"] = row
+        rec[name] = dict(query_rows=q_rows, blocks=nb, phase1=got[2],
+                         survived=got[3])
+        print(f"filter {name}: bit-equal to plain; {q_rows} query rows x "
+              f"{nb} blocks, {got[2]} pass the box tests, {got[3]} survive; "
+              f"kernels {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms "
+              "(plain, kernel, kernel, plain = "
+              + ", ".join(f"{t:.4f}" for t in row["turns_ms"])
+              + f"); bound {row['bound_ms']:.5f} ms ({int(nbytes)} B): "
+              f"{100 * row['share_of_bound']:.1f} % of it by events")
+        del calls, args, got, plain
+    record["filter"] = dict(rec, rows=rows)
+    return rows
 
 
 def pe_streamed_phase(g, queries, device, record, oracle, table_eng,
@@ -3503,6 +3599,8 @@ def main() -> int:
     fresh("pe_table")
     leaf_rows, union_rows = union_phase(table_eng, queries, device, record)
     fresh("union")
+    filter_rows = filter_phase(table_eng, queries, device, record)
+    fresh("filter")
     launches += pe_streamed_phase(g, queries, device, record, pe_oracle,
                                   table_eng)
     del table_eng
@@ -3578,7 +3676,9 @@ def main() -> int:
         union_bitmap=sum(r["union_launches"] for r in record.values()
                          if isinstance(r, dict) and "union_launches" in r),
         leaf_scatter=sum(r["leaf_launches"] for r in record.values()
-                         if isinstance(r, dict) and "leaf_launches" in r))
+                         if isinstance(r, dict) and "leaf_launches" in r),
+        block_filter=sum(r["filter_launches"] for r in record.values()
+                         if isinstance(r, dict) and "filter_launches" in r))
     check(min(kernel_launches.values()) > 0,
           f"a kernel did not launch on the main paths: {kernel_launches}")
     foreign = sorted(m for m in sys.modules
@@ -3608,7 +3708,12 @@ def main() -> int:
                     "device_packed.py, no Pallas kernel); absorbs "
                     "union_bitmap's scatter for the PE table layouts",
                     kernel_launches["leaf_scatter"], leaf_rows,
-                    "online_leaf")]}))
+                    "online_leaf"),
+        _kernel_row("block_filter", "none: PE phase 1 (the table layout's "
+                    "XLA compares in gnnpe_tpu/index/device_packed.py, no "
+                    "Pallas kernel); absorbs the signature-run prune and "
+                    "the selection", kernel_launches["block_filter"],
+                    filter_rows, "online_filter")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -31,12 +31,19 @@ mode's ``_chunk_vids``; the table layouts' ``_vid_blocks``, a vid table
 on the device and the chunk's blocks in it) and in how they are built.
 Every class answers one protocol, ``search(query)``:
 
-  phase 1 — block mask bool[Q, NB]: every query row against every block
-    summary (label window, degree bound, upper-bound dominance).
+  phase 1 — every query row against every block summary (label window,
+    degree bound, upper-bound dominance).
   range prune — blocks outside a query row's contiguous run of possible
     exact-label matches go: PGE's blocks are label-sorted, table-mode
     and streamed PE's are sorted by label signature.
-  selection — the blocks that survive for any row.
+  selection — the blocks that survive for any row, and each one's gate:
+    the rows it survives for.  The PE table layouts run the three as one
+    kernel (ops/block_filter.py, csrc/block_filter.cu) that reads each
+    block summary once, tests every query row and its signature run in
+    registers and writes the survivors' ids and gate rows in block order,
+    after one wait for its two counts; no mask over [Q, NB] is made.  The
+    array layout and PGE build a bool mask [Q, NB] from chunked compares,
+    prune it and take its ``nonzero``.
   phase 2 — the surviving blocks' rows are leaf-tested, gated by
     per-(row, block) survival, and every gated hit is OR-ed into a
     bit-packed bitmap [nq, ⌈V/32⌉] on the device, without a wait
@@ -53,7 +60,8 @@ Every class answers one protocol, ``search(query)``:
     into each query vertex's sorted ids, which come back in one copy.
 
 Each search times three spans on the host clock, each also a profiler
-range (``search.filter``: phase 1, the prune and the selection;
+range (``search.filter``: phase 1, the prune and the selection, ending
+on the wait for the fused filter's counts or on ``nonzero``;
 ``search.phase2``: the chunks' leaf tests and scatters and, last, the
 read of the scatter's hit counter; ``search.extract``: the union, with
 the wait in its collective on a sharded index, the compaction and the
@@ -63,10 +71,11 @@ their ms (``filter_ms``, ``phase2_ms``, ``extract_ms``) beside the
 counters ``hit_rows`` (the columns with any gated hit, summed over
 chunks, counted by the scatter), ``copied_bytes`` (what crosses to the
 host: the compacted offsets and ids), ``cand_ids`` (the candidates
-returned, summed over query vertices) and ``leaf_fused_rows`` (the vid
+returned, summed over query vertices), ``leaf_fused_rows`` (the vid
 rows the fused leaf test took, survived × B; 0 in the array layout and
-PGE); PGE's also ``label_run_blocks`` (the blocks its label-run prune
-lets through).
+PGE) and ``filter_fused_blocks`` (the blocks the fused filter scanned,
+NB; 0 in the array layout and PGE); PGE's also ``label_run_blocks`` (the
+blocks its label-run prune lets through).
 
 Every leaf decision is a native f64 compare against thresholds computed
 on the host with ``eps_threshold``, so candidate sets equal the f64 host
@@ -102,7 +111,7 @@ from gnnpe_tpu_torch.embed.pde import PathEmbeddings
 from gnnpe_tpu_torch.match.device_filter import (pe_mask_exact,
                                                  pge_mask_exact)
 from gnnpe_tpu_torch.match.filter import eps_threshold
-from gnnpe_tpu_torch.ops import leaf_scatter, union_bitmap
+from gnnpe_tpu_torch.ops import block_filter, leaf_scatter, union_bitmap
 from gnnpe_tpu_torch.parallel.collectives import (barrier, dist_rank,
                                                   gather_objects)
 from gnnpe_tpu_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
@@ -727,18 +736,23 @@ class _PackedSearch:
     """The two-phase search shared by both variants.  Subclasses set
     the fields below and supply ``_prepare`` (whose query carries
     ``out_ids``, int32 [Q, L']: the query vertex of each position of a
-    row), ``_phase1`` and ``_prune``, and phase 2: ``_chunk_vids`` (a
+    row), ``_phase1`` and ``_prune``, or where the layout fuses them
+    (``fuses_filter``) ``_filter``, and phase 2: ``_chunk_vids`` (a
     chunk's vertex ids [K·B, L']) and ``_leaf_mask``, or where the layout
-    fuses it (``fuses_leaf``) ``_fused_chunk`` and ``_leaf_scatter``."""
+    fuses it (``fuses_leaf``, which takes the fused filter's gate rows)
+    ``_fused_chunk`` and ``_leaf_scatter``."""
 
     device: torch.device
     block_size: int
     num_blocks: int
     num_vertices: int
     width: int              # embedding columns of one entry
-    # Whether phase 2 runs as one fused leaf test and scatter
-    # (``_leaf_scatter``) instead of ``_leaf_mask`` and the union's
-    # scatter: a property of the layout, whatever the shapes.
+    # Whether phase 1, the range prune and the selection run as one fused
+    # filter (``_filter``) instead of ``_phase1``, ``_prune`` and
+    # ``nonzero``, and whether phase 2 runs as one fused leaf test and
+    # scatter (``_leaf_scatter``) instead of ``_leaf_mask`` and the union's
+    # scatter: properties of the layout, whatever the shapes.
+    fuses_filter = False
     fuses_leaf = False
 
     def _put(self, a) -> torch.Tensor:
@@ -752,13 +766,6 @@ class _PackedSearch:
                          device=self.device)
         out[:len(a)] = self._put(a)
         return out
-
-    def _range_prune(self, bmask, lo, hi) -> torch.Tensor:
-        """``bmask`` kept only on the block columns [lo[i], hi[i]) of
-        each row i (host int arrays)."""
-        cols = torch.arange(bmask.shape[1], device=self.device)[None]
-        return (bmask & (cols >= self._put(lo)[:, None])
-                & (cols < self._put(hi)[:, None]))
 
     def resident_tensors(self) -> dict:
         """The index tensors this search keeps on its device."""
@@ -857,21 +864,25 @@ class _PackedSearch:
             return None
         nb, b = self.num_blocks, self.block_size
         with spans.stage("search.filter"):
-            step = max(1, CHUNK_ELEMS // (q.rows * self.width))
-            bmask = torch.cat([self._phase1(q, lo, min(lo + step, nb))
-                               for lo in range(0, nb, step)], dim=1)
-            phase1 = int(bmask.any(0).sum())
-            bmask = self._prune(q, bmask)
-            sel = torch.nonzero(bmask.any(0)).squeeze(1)
+            if self.fuses_filter:
+                sel, gate, phase1, n_sel = self._filter(q)
+            else:
+                step = max(1, CHUNK_ELEMS // (q.rows * self.width))
+                bmask = torch.cat([self._phase1(q, lo, min(lo + step, nb))
+                                   for lo in range(0, nb, step)], dim=1)
+                phase1 = int(bmask.any(0).sum())
+                bmask = self._prune(q, bmask)
+                sel = torch.nonzero(bmask.any(0)).squeeze(1)
+                n_sel = sel.numel()
         k = self._chunk_limit(max(1, CHUNK_ELEMS // (q.rows * b * self.width)))
-        n_sel = sel.numel()
         fused = self.fuses_leaf
         if fused:
             k = self._fused_chunk(k, n_sel)
-        st = self.last_stats = dict(blocks=nb, phase1=phase1, survived=n_sel,
-                                    chunks=-(-n_sel // k), hit_rows=0,
-                                    copied_bytes=0,
-                                    leaf_fused_rows=n_sel * b if fused else 0)
+        st = self.last_stats = dict(
+            blocks=nb, phase1=phase1, survived=n_sel, chunks=-(-n_sel // k),
+            hit_rows=0, copied_bytes=0,
+            leaf_fused_rows=n_sel * b if fused else 0,
+            filter_fused_blocks=nb if self.fuses_filter else 0)
         if n_sel == 0:
             return None
         offs = torch.arange(b, device=self.device)
@@ -882,7 +893,7 @@ class _PackedSearch:
             with spans.stage("search.phase2"):
                 blk = sel[lo:lo + k]
                 if fused:
-                    self._leaf_scatter(q, bmask, blk, words, hits)
+                    self._leaf_scatter(q, gate[lo:lo + k], blk, words, hits)
                     continue
                 rows = (blk[:, None] * b + offs[None]).reshape(-1)
                 vids = self._chunk_vids(blk, rows)
@@ -914,12 +925,9 @@ class _PESearch(_PackedSearch):
             out_ids=self._put(t.vids[rows].astype(np.int32)))
 
     def _phase1(self, q, lo: int, hi: int) -> torch.Tensor:
-        dom = (self.b_ub[None, lo:hi] >= q.thresh[:, None]).all(-1)
-        inside = ((q.pde_label[:, None] >= self.b_llo[None, lo:hi]) &
-                  (self.b_lhi[None, lo:hi] >= q.pde_label[:, None])
-                  ).all(-1)
-        deg = (q.degrees[:, None] <= self.b_deg[None, lo:hi]).all(-1)
-        return dom & inside & deg
+        return block_filter.box_mask(
+            self.b_ub[lo:hi], self.b_llo[lo:hi], self.b_lhi[lo:hi],
+            self.b_deg[lo:hi], q.thresh, q.pde_label, q.degrees)
 
     def _prune(self, q, bmask: torch.Tensor) -> torch.Tensor:
         return bmask
@@ -965,11 +973,13 @@ class _TableLayout(_PESearch):
     at V, through which the leaf test gathers a chunk's vid rows; f32
     block summaries; the per-block signature ranges of the sort key,
     which prune blocks after phase 1; the sorted vid table on the host
-    (``_host_vids``); ``save`` and ``load``; phase 2 as the fused leaf
-    test.  A mode supplies ``_vid_blocks`` (a vid table on the device and
-    the chunk's blocks in it)."""
+    (``_host_vids``); ``save`` and ``load``; phase 1, the prune and the
+    selection as the fused filter, and phase 2 as the fused leaf test.  A
+    mode supplies ``_vid_blocks`` (a vid table on the device and the
+    chunk's blocks in it)."""
 
     streamed = False
+    fuses_filter = True
     fuses_leaf = True
     _ROW_FIELDS = ("d_vids",)
     _BLOCK_FIELDS = ("b_ub", "b_llo", "b_lhi", "b_deg", "_blk_sig_first",
@@ -1113,14 +1123,19 @@ class _TableLayout(_PESearch):
             self.group = axis_group(mesh, axis)
         return self
 
-    def _prune(self, q, bmask: torch.Tensor) -> torch.Tensor:
-        """A row's exact-label matches lie in the blocks whose signature
-        range holds its signature (conservative: equal labels give equal
-        signatures)."""
+    def _filter(self, q):
+        """Phase 1, the prune and the selection in one call of
+        ``block_filter.filter``: (sel, gate rows, phase1, survived).  A
+        row's exact-label matches lie in the run of blocks whose
+        signature range holds its signature (conservative: equal labels
+        give equal signatures), found on the host."""
         qsig = path_sig(q.host_labels, self._sig_radix)
-        return self._range_prune(
-            bmask, np.searchsorted(self._blk_sig_last, qsig, side="left"),
-            np.searchsorted(self._blk_sig_first, qsig, side="right"))
+        runs = np.stack([
+            np.searchsorted(self._blk_sig_last, qsig, side="left"),
+            np.searchsorted(self._blk_sig_first, qsig, side="right")])
+        return block_filter.filter(
+            self.b_ub, self.b_llo, self.b_lhi, self.b_deg, q.thresh,
+            q.pde_label, q.degrees.int(), self._put(runs.astype(np.int64)))
 
     def _fused_chunk(self, k: int, n_sel: int) -> int:
         """The blocks one fused launch takes: every surviving block where
@@ -1128,17 +1143,17 @@ class _TableLayout(_PESearch):
         its pool."""
         return k if self.streamed else max(1, n_sel)
 
-    def _leaf_scatter(self, q, bmask, blk, words, hits) -> None:
-        """The blocks ``blk`` leaf-tested against their gated query rows
-        and their hits OR-ed into ``words`` by one launch of
+    def _leaf_scatter(self, q, gate, blk, words, hits) -> None:
+        """The blocks ``blk`` leaf-tested against the query rows of their
+        gate rows ``gate`` (bool [len(blk), Q], the fused filter's) and
+        their hits OR-ed into ``words`` by one launch of
         ``leaf_scatter.scatter``: no gathered table, mask or row index is
         made."""
         vids, ids = self._vid_blocks(blk)
         leaf_scatter.scatter(
-            words, self.num_vertices, vids, ids, self.block_size,
-            bmask.t()[blk].contiguous(), self.t_labels, self.t_degrees,
-            self.t_vde, q.labels.int(), q.degrees.int(), q.thresh,
-            q.out_ids, hits)
+            words, self.num_vertices, vids, ids, self.block_size, gate,
+            self.t_labels, self.t_degrees, self.t_vde, q.labels.int(),
+            q.degrees.int(), q.thresh, q.out_ids, hits)
 
 
 load = _TableLayout.load
@@ -1511,7 +1526,9 @@ class DevicePackedPGESearch(_PackedSearch):
         lo = np.searchsorted(self._blk_lab_last, lab, side="left")
         hi = np.searchsorted(self._blk_lab_first, lab, side="right")
         q.label_run_blocks = int(np.maximum(hi - lo, 0).sum())
-        return self._range_prune(bmask, lo, hi)
+        cols = torch.arange(bmask.shape[1], device=self.device)[None]
+        return (bmask & (cols >= self._put(lo)[:, None])
+                & (cols < self._put(hi)[:, None]))
 
     def _search_local(self, q, spans: StageTimer):
         """The shared search, whose ``last_stats`` gains

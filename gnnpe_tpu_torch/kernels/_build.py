@@ -66,6 +66,17 @@ _SIGNATURES = {
     "leaf_scatter": {
         "gnnpe_leaf_scatter": [_c.c_int] + [_c.c_void_p] * 12
         + [_c.c_longlong] * 2 + [_c.c_int] * 6 + [_c.c_longlong, _c.c_void_p]},
+    # count: (device, ub, llo, lhi, deg, thresh, label, q_degrees, runs,
+    #  bits, counts, offsets, counters, num_blocks, rows, width, dim,
+    #  stream); write: (device, bits, offsets, num_blocks, rows, sel, gate,
+    #  stream)
+    "block_filter": {
+        "gnnpe_block_filter_count": [_c.c_int] + [_c.c_void_p] * 12
+        + [_c.c_longlong] + [_c.c_int] * 3 + [_c.c_void_p],
+        "gnnpe_block_filter_write": [_c.c_int, _c.c_void_p, _c.c_void_p,
+                                     _c.c_longlong, _c.c_int, _c.c_void_p,
+                                     _c.c_void_p, _c.c_void_p],
+        "gnnpe_block_filter_threads": []},
 }
 
 
