@@ -565,7 +565,8 @@ def _summarise(prefix, eng, runs, survived, wall, launches, union_launches,
     n = len(single)
     rec = dict(wall_ms=wall.times_ms)
     rec["online_ms"] = _percentiles(
-        [sum(r.timings_ms.values()) for r in single])
+        [sum(v for k, v in r.timings_ms.items() if "." not in k)
+         for r in single])
     rec["online_stage_ms"] = {
         k: _percentiles([r.timings_ms[k] for r in single])
         for k in ("query_plan", "search", "refine")}

@@ -31,7 +31,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
@@ -65,10 +65,17 @@ from gnnpe_tpu_torch.utils.timers import StageTimer
 
 @dataclass
 class MatchResult:
+    """One query's answer.  ``timings_ms`` holds the engine's stages
+    (``query_plan``, ``search``, [``preverify``], ``refine``) and
+    refinement's ``refine.order``, ``refine.prepare`` (native engine)
+    and ``refine.explore`` inside ``refine``; ``stats`` refinement's
+    counters ``cand_ids``, ``explore_nodes`` and ``explore_scans``
+    (match/refine.py)."""
     answer_count: int
     candidates: List[np.ndarray]
     timings_ms: dict
     embeddings: Optional[np.ndarray] = None
+    stats: dict = field(default_factory=dict)
 
 
 class _Engine:
@@ -170,13 +177,19 @@ class _Engine:
         if preverify:
             with t.stage("preverify"):
                 cands = self._prune(query_graph, cands, preverify)
+        # Refinement's spans time host work only, so, as the search's
+        # spans, their edges do not synchronise the device.
+        stats, spans = {}, StageTimer()
         with t.stage("refine"):
             res = refinement(self.graph, query_graph, cands,
                              self.config.max_answers, engine=engine,
-                             return_embeddings=return_embeddings)
+                             return_embeddings=return_embeddings,
+                             timer=spans, stats=stats)
+        t.times_ms.update(spans.times_ms)
         count, emb = res if return_embeddings else (res, None)
         return MatchResult(answer_count=int(count), candidates=cands,
-                           timings_ms=t.times_ms, embeddings=emb)
+                           timings_ms=t.times_ms, embeddings=emb,
+                           stats=stats)
 
     def online_many(self, query_graphs, engine: str = "native",
                     preverify: int = 0) -> List[MatchResult]:
@@ -186,8 +199,9 @@ class _Engine:
         (as in ``online``) and refinement; like ``online`` it takes no
         union option.  Each result's
         ``timings_ms`` holds ``query_plan``, ``search``, [``preverify``],
-        ``refine``, as ``online``'s does; its ``query_plan`` and
-        ``search`` are the batch's, the same in every result."""
+        ``refine`` and refinement's spans, and its ``stats`` its
+        counters, as ``online``'s do; its ``query_plan`` and ``search``
+        are the batch's, the same in every result."""
         if self.searcher is None:
             raise RuntimeError("call attach_device() before online_many()")
         t = StageTimer(self.device)
@@ -221,11 +235,12 @@ def _refine_batch(graph, query_graphs, per_query_cands, max_answers,
         t.times_ms.update(shared_ms)
 
     def one(qg, cands, t):
+        stats = {}
         with t.stage("refine"):
             count = refinement(graph, qg, cands, max_answers,
-                               engine=engine)
+                               engine=engine, timer=t, stats=stats)
         return MatchResult(answer_count=int(count), candidates=cands,
-                           timings_ms=t.times_ms)
+                           timings_ms=t.times_ms, stats=stats)
 
     with annotate("refine"):
         if prune is not None:

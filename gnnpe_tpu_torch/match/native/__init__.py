@@ -7,17 +7,18 @@ directory), named by a hash of the source, then exposes
 numpy buffers.  A failed build raises.
 """
 
-# The port's own copy of gnnpe_tpu/match/native/ (refine.cpp is copied
-# beside this file unchanged).
+# The port's own copy of gnnpe_tpu/match/native/; refine.cpp adds the
+# search tree's counters (``out_stats``) to the copy.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
 import threading
-from typing import List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -50,6 +51,7 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(so)
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
         lib.gnnpe_refine.restype = ctypes.c_uint64
         lib.gnnpe_refine.argtypes = [
             i32p, i32p, i32p, ctypes.c_int32,        # data CSR
@@ -60,6 +62,7 @@ def _load() -> ctypes.CDLL:
             ctypes.c_uint64,                         # max_answers
             ctypes.c_void_p, ctypes.c_int64,         # out_embeddings
             ctypes.POINTER(ctypes.c_int64),          # out_emitted
+            u64p,                                    # out_stats
         ]
         _LIB = lib
         return lib
@@ -72,36 +75,52 @@ def _i32(a) -> np.ndarray:
 def explore_native(data_graph, query_graph, candidates: List[np.ndarray],
                    order: np.ndarray, pivot: np.ndarray,
                    bn: List[np.ndarray], max_answers: int,
-                   max_emit: int = 0
+                   max_emit: int = 0,
+                   stage: Callable = contextlib.nullcontext,
+                   stats: Optional[dict] = None
                    ) -> Union[int, Tuple[int, np.ndarray]]:
     """Run the C++ explorer.  With max_emit > 0, also returns up to that
-    many embeddings (int32[n, |Vq|], query-vertex-id indexed)."""
+    many embeddings (int32[n, |Vq|], query-vertex-id indexed).
+    ``stage(name)`` opens a timed span (``StageTimer.stage``) around
+    ``refine.prepare``, the explorer's int32 arrays, and
+    ``refine.explore``, the native call.  ``stats``, where given, gets
+    the search tree's ``explore_nodes`` (the partial maps formed, the
+    complete ones included) and ``explore_scans`` (the entries read to
+    extend them: the first vertex's candidates and each pivot's
+    neighbour row)."""
     lib = _load()
     nq = query_graph.num_vertices
-    bn_off = np.zeros(nq + 1, dtype=np.int32)
-    for i, b in enumerate(bn):
-        bn_off[i + 1] = bn_off[i] + len(b)
-    bn_flat = (np.concatenate([_i32(b) for b in bn])
-               if bn_off[-1] else np.zeros(0, dtype=np.int32))
-    cand_off = np.zeros(nq + 1, dtype=np.int64)
-    for i, c in enumerate(candidates):
-        cand_off[i + 1] = cand_off[i] + len(c)
-    cand_flat = (np.concatenate([_i32(c) for c in candidates])
-                 if cand_off[-1] else np.zeros(0, dtype=np.int32))
-
-    out_emb = (np.zeros((max_emit, nq), dtype=np.int32)
-               if max_emit > 0 else None)
+    with stage("refine.prepare"):
+        bn_off = np.zeros(nq + 1, dtype=np.int32)
+        for i, b in enumerate(bn):
+            bn_off[i + 1] = bn_off[i] + len(b)
+        bn_flat = (np.concatenate([_i32(b) for b in bn])
+                   if bn_off[-1] else np.zeros(0, dtype=np.int32))
+        cand_off = np.zeros(nq + 1, dtype=np.int64)
+        for i, c in enumerate(candidates):
+            cand_off[i + 1] = cand_off[i] + len(c)
+        cand_flat = (np.concatenate([_i32(c) for c in candidates])
+                     if cand_off[-1] else np.zeros(0, dtype=np.int32))
+        data = (_i32(data_graph.offsets), _i32(data_graph.neighbors),
+                _i32(data_graph.labels))
+        query = (_i32(query_graph.offsets), _i32(query_graph.neighbors),
+                 _i32(query_graph.labels))
+        plan = (_i32(order), _i32(pivot))
+        out_emb = (np.zeros((max_emit, nq), dtype=np.int32)
+                   if max_emit > 0 else None)
+        counters = np.zeros(2, dtype=np.uint64)
     emitted = ctypes.c_int64(0)
-    count = lib.gnnpe_refine(
-        _i32(data_graph.offsets), _i32(data_graph.neighbors),
-        _i32(data_graph.labels), data_graph.num_vertices,
-        _i32(query_graph.offsets), _i32(query_graph.neighbors),
-        _i32(query_graph.labels), nq,
-        _i32(order), _i32(pivot), bn_flat, bn_off, cand_flat, cand_off,
-        ctypes.c_uint64(max_answers),
-        out_emb.ctypes.data_as(ctypes.c_void_p) if out_emb is not None
-        else None,
-        ctypes.c_int64(max_emit), ctypes.byref(emitted))
+    with stage("refine.explore"):
+        count = lib.gnnpe_refine(
+            *data, data_graph.num_vertices, *query, nq, *plan,
+            bn_flat, bn_off, cand_flat, cand_off,
+            ctypes.c_uint64(max_answers),
+            out_emb.ctypes.data_as(ctypes.c_void_p) if out_emb is not None
+            else None,
+            ctypes.c_int64(max_emit), ctypes.byref(emitted), counters)
+    if stats is not None:
+        stats["explore_nodes"] = int(counters[0])
+        stats["explore_scans"] = int(counters[1])
     if max_emit > 0:
         return int(count), out_emb[:emitted.value]
     return int(count)

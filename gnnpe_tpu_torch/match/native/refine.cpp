@@ -50,6 +50,10 @@ extern "C" {
 //   max_answers: stop after this many (UINT32_MAX = unlimited)
 //   out_embeddings: int32[max_emit * nq] or null; emitted row-major in
 //     query-vertex-id order. out_emitted: number of rows written.
+//   out_stats: uint64[2] or null: [0] the nodes of the search tree (every
+//     partial map formed, the complete ones included), [1] the entries
+//     read to extend them (the first vertex's candidates, then every
+//     pivot's whole neighbour row).
 // Returns the match count (possibly > max_emit when only counting).
 uint64_t gnnpe_refine(
     const int32_t* d_offsets, const int32_t* d_neighbors,
@@ -60,7 +64,8 @@ uint64_t gnnpe_refine(
     const int32_t* bn_flat, const int32_t* bn_off,
     const int32_t* cand_flat, const int64_t* cand_off,
     uint64_t max_answers,
-    int32_t* out_embeddings, int64_t max_emit, int64_t* out_emitted) {
+    int32_t* out_embeddings, int64_t max_emit, int64_t* out_emitted,
+    uint64_t* out_stats) {
 
     Csr d{d_offsets, d_neighbors, d_labels, d_num_vertices};
     Csr q{q_offsets, q_neighbors, q_labels, q_num_vertices};
@@ -80,6 +85,8 @@ uint64_t gnnpe_refine(
     }
 
     uint64_t count = 0;
+    uint64_t nodes = 0;
+    uint64_t scans = stack[0].size();
     int64_t emitted = 0;
     int depth = 0;
     idx[0] = 0;
@@ -90,6 +97,7 @@ uint64_t gnnpe_refine(
             int32_t v = stack[depth][idx[depth]++];
             int32_t u = order[depth];
             embedding[u] = v;
+            nodes++;
             if (depth == nq - 1) {
                 count++;
                 if (out_embeddings && emitted < max_emit) {
@@ -110,6 +118,7 @@ uint64_t gnnpe_refine(
                 stack[depth].clear();
                 const int32_t* nb = d_neighbors + d_offsets[p];
                 int32_t cnt = d.degree(p);
+                scans += cnt;
                 const int32_t* bns = bn_flat + bn_off[depth];
                 int32_t bn_cnt = bn_off[depth + 1] - bn_off[depth];
                 for (int32_t i = 0; i < cnt; i++) {
@@ -138,6 +147,10 @@ uint64_t gnnpe_refine(
 
 done:
     if (out_emitted) *out_emitted = emitted;
+    if (out_stats) {
+        out_stats[0] = nodes;
+        out_stats[1] = scans;
+    }
     return count;
 }
 

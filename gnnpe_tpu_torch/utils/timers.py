@@ -3,7 +3,10 @@
 On a CUDA device each stage edge synchronises the device first, so a
 stage's time covers the device work it queued.  Every stage also opens
 ``utils/profiling.annotate`` (as gnnpe_tpu's timer does), so the stages
-appear by name in a trace whenever one is being captured.
+appear by name in a trace whenever one is being captured.  A stage may
+open inside another (``refine.explore`` inside ``refine``); ``times_ms``
+keeps the stages in the order they were first opened, so an outer
+stage comes before its parts.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        self.times_ms.setdefault(name, 0.0)
         self._sync()
         t0 = time.perf_counter()
         try:
@@ -37,7 +41,7 @@ class StageTimer:
                 self._sync()
         finally:
             dt = (time.perf_counter() - t0) * 1e3
-            self.times_ms[name] = self.times_ms.get(name, 0.0) + dt
+            self.times_ms[name] += dt
 
     @property
     def total_ms(self) -> float:

@@ -84,7 +84,9 @@ def test_online_parity(graphs, pe_pair, pge_pair, variant, ref_union):
         got = port.online(qg)
         _assert_same_result(got, ref.online(qg, engine="native",
                                             union=ref_union))
-        assert set(got.timings_ms) == {"query_plan", "search", "refine"}
+        assert set(got.timings_ms) == {"query_plan", "search", "refine",
+                                       "refine.order", "refine.prepare",
+                                       "refine.explore"}
     assert port.searcher.last_stats["survived"] > 0
 
 

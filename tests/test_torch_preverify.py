@@ -22,6 +22,8 @@ from gnnpe_tpu_torch.match import preverify
 from gnnpe_tpu_torch.match.preverify import semijoin_prune
 from gnnpe_tpu_torch.ops import spmm
 
+REFINE_SPANS = ("refine.order", "refine.prepare", "refine.explore")
+
 
 @pytest.fixture(scope="module")
 def graphs():
@@ -133,7 +135,7 @@ def test_pge_counts_unchanged_under_preverify(graphs, engines, serve):
         assert got.answer_count == plain.answer_count == want.answer_count
         _same(got.candidates, want.candidates)
         assert list(got.timings_ms) == ["query_plan", "search", "preverify",
-                                        "refine"]
+                                        "refine", *REFINE_SPANS]
         assert "preverify" not in plain.timings_ms
         shrunk += sum(map(len, plain.candidates)) - sum(map(len,
                                                             got.candidates))
@@ -169,10 +171,10 @@ def test_online_many_preverify_equals_jax(graphs, engines, variant):
         _same(a.candidates, c.candidates)
         assert a.answer_count == b.answer_count == c.answer_count
         assert list(a.timings_ms) == ["query_plan", "search", "preverify",
-                                      "refine"]
+                                      "refine", *REFINE_SPANS]
     off = port.online_many(queries)
-    assert all(list(r.timings_ms) == ["query_plan", "search", "refine"]
-               for r in off)
+    assert all(list(r.timings_ms) == ["query_plan", "search", "refine",
+                                      *REFINE_SPANS] for r in off)
     # One query, and the python engine, take the unthreaded path.
     one = port.online_many(queries[:1], engine="python", preverify=2)
     assert one[0].answer_count == got[0].answer_count

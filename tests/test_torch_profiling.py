@@ -48,6 +48,24 @@ def test_trace_holds_annotations(tmp_path):
     assert again.trace_path != prof.trace_path
 
 
+def test_annotate_opens_a_range_only_under_a_profiler(tmp_path,
+                                                     monkeypatch):
+    opened, inner = [], torch.profiler.record_function
+
+    def record_function(name, *args):
+        opened.append(name)
+        return inner(name, *args)
+    monkeypatch.setattr(torch.profiler, "record_function", record_function)
+    with profiling.annotate("untraced"):
+        pass
+    assert opened == []
+    with profiling.trace(str(tmp_path), "cpu") as prof:
+        with profiling.annotate("traced"):
+            pass
+    assert opened == ["traced"]
+    assert "traced" in _names(prof.trace_path)
+
+
 def test_engine_stages_are_ranges(tmp_path):
     g = powerlaw_graph(300, 1200, 4, seed=2, max_degree=40)
     q = sample_query(g, 4, seed=1)
@@ -55,7 +73,8 @@ def test_engine_stages_are_ranges(tmp_path):
     eng.build_index(block_size=16).attach_device("cpu")
     with profiling.trace(str(tmp_path), "cpu") as prof:
         r = eng.online(q, preverify=1)
-    stages = {"query_plan", "search", "preverify", "refine"}
+    stages = {"query_plan", "search", "preverify", "refine",
+              "refine.order", "refine.prepare", "refine.explore"}
     assert stages <= set(r.timings_ms)
     assert stages <= _names(prof.trace_path)
 
@@ -71,8 +90,9 @@ def test_online_many_stages_are_ranges_on_the_calling_thread(tmp_path):
     eng.build_index(block_size=16).attach_device("cpu")
     with profiling.trace(str(tmp_path), "cpu") as prof:
         rs = eng.online_many(qs)
-    assert all(list(r.timings_ms) == ["query_plan", "search", "refine"]
-               for r in rs)
+    assert all(list(r.timings_ms) == ["query_plan", "search", "refine",
+                                      "refine.order", "refine.prepare",
+                                      "refine.explore"] for r in rs)
     with open(prof.trace_path) as f:
         data = json.load(f)
     events = data["traceEvents"] if isinstance(data, dict) else data
