@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -69,8 +70,8 @@ class MatchResult:
     (``query_plan``, ``search``, [``preverify``], ``refine``) and
     refinement's ``refine.order``, ``refine.prepare`` (native engine)
     and ``refine.explore`` inside ``refine``; ``stats`` refinement's
-    counters ``cand_ids``, ``explore_nodes`` and ``explore_scans``
-    (match/refine.py)."""
+    counters ``cand_ids``, ``explore_nodes``, ``explore_scans`` and
+    ``explore_row_arcs`` (match/refine.py)."""
     answer_count: int
     candidates: List[np.ndarray]
     timings_ms: dict
@@ -112,6 +113,15 @@ class _Engine:
             self._csr = to_device(self.graph, self.device)[:2]
         return semijoin_prune(self.graph, query_graph, cands, self.device,
                               iters=iters, csr=self._csr)
+
+    def _build_label_runs(self) -> dict:
+        """The data graph's label runs (``CSRGraph.label_adjacency``),
+        which refinement walks, built here once so that no query, and no
+        pool thread of ``online_many``, builds them.  Returns
+        ``{"label_runs_s": seconds}``."""
+        start = time.perf_counter()
+        self.graph.label_adjacency()
+        return {"label_runs_s": time.perf_counter() - start}
 
     def _vde(self, graph: CSRGraph):
         if self.embedder is not None:
@@ -270,13 +280,16 @@ class PEEngine(_Engine):
         self.partition_rows = None
         self.data_pde = None
         self.build_timings = None
+        self._offline_timings = {}
 
     def offline(self, device: bool = False):
         """Enumerate paths from degree-sorted starts, one orientation
         each (ref main.cpp:75-120): numpy on the host, or with
         ``device=True`` an int32 tensor enumerated and deduplicated on
         the engine's device chunk by chunk — the same paths in the same
-        order."""
+        order.  Then the label runs refinement walks, timed as
+        ``label_runs_s``, which every ``build_timings`` that
+        ``build_index`` leaves holds."""
         order = degree_sorted_nodes(self.graph)
         if device:
             self.paths = enumerate_dedup_device(
@@ -286,6 +299,7 @@ class PEEngine(_Engine):
             self.paths, self.partition_rows = enumerate_paths(
                 self.graph, order, self.config.path_length, dedup=True,
                 membership=self.membership)
+        self._offline_timings = self._build_label_runs()
         return self
 
     def build_index(self, block_size: int = 512, table: bool = False,
@@ -311,7 +325,7 @@ class PEEngine(_Engine):
         (``builds_resident``).  ``cache_bytes`` and ``cache`` are the
         streamed search's."""
         self.vertices = self._vde(self.graph)
-        self.build_timings = None
+        self.build_timings = dict(self._offline_timings)
         self.data_pde = None
         if not table:
             self.searcher = None        # until attach_device uploads
@@ -336,11 +350,12 @@ class PEEngine(_Engine):
         paths = torch.as_tensor(self.paths).cpu().numpy()
         chunks = (paths[lo:lo + BUILD_CHUNK_PATHS]
                   for lo in range(0, p, BUILD_CHUNK_PATHS))
-        self.searcher, self.build_timings = build_streamed_from_chunks(
+        self.searcher, streamed = build_streamed_from_chunks(
             chunks, p, self.graph, degree_sorted_nodes(self.graph), l,
             self.vertices, self.device, block_size=block_size,
             spill_dir=spill_dir, base_epsilon=self.config.epsilon,
             cache_bytes=cache_bytes, cache=cache)
+        self.build_timings.update(streamed)
         return self
 
     def _flat_search(self, mesh, axis: str):
@@ -401,8 +416,9 @@ class PGEEngine(_Engine):
         (ref GNN-PGE/src/main.cpp:91-177): folded on the host, or with
         ``device=True`` enumerated and folded chunk by chunk on the
         engine's device (``path_groups_device``) — the same groups bit
-        for bit.  ``build_timings`` starts anew with ``vde_s`` and
-        ``groups_s``; ``build_index`` adds ``index_s`` and
+        for bit.  Then the label runs refinement walks.
+        ``build_timings`` starts anew with ``vde_s``, ``groups_s`` and
+        ``label_runs_s``; ``build_index`` adds ``index_s`` and
         ``attach_device`` ``upload_s``."""
         self.build_timings = {}
         with self._build_stage("vde"):
@@ -420,6 +436,7 @@ class PGEEngine(_Engine):
                                            dedup=False)
                 self.group, self.label_group = path_groups(
                     self.vertices, paths[:, 0], paths, self.config.pde_dim)
+        self.build_timings.update(self._build_label_runs())
         return self
 
     def build_index(self, block_size: int = 512):

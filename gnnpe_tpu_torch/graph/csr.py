@@ -34,6 +34,10 @@ from gnnpe_tpu_torch.utils.device import as_device
 
 __all__ = ["CSRGraph", "to_device"]
 
+# Row-label counts per chunk of ``label_adjacency``'s offset table
+# (int64, 256 MB).
+LABEL_RUN_CHUNK = 1 << 25
+
 
 @dataclass
 class CSRGraph:
@@ -138,26 +142,34 @@ class CSRGraph:
         where row v's neighbors are re-sorted by (label, id) and
         ``label_neighbors[offsets[v] + label_offsets[v, l] :
         offsets[v] + label_offsets[v, l+1]]`` are v's label-l neighbors.
-        Lazy: the dense offset table is O(V·L) — build on demand.
+        Lazy: the dense offset table is O(V·L) — build on demand.  The
+        rows are id-sorted already, so one stable sort by (row, label)
+        gives the (row, label, id) order.
         """
         if getattr(self, "_label_adj", None) is None:
-            src = np.repeat(np.arange(self.num_vertices, dtype=np.int64),
-                            self.degrees)
-            nl = self.labels[self.neighbors].astype(np.int64)
-            order = np.lexsort((self.neighbors, nl, src))
-            label_neighbors = self.neighbors[order]
-            counts = np.bincount(
-                src * self.labels_count + nl,
-                minlength=self.num_vertices * self.labels_count
-            ).reshape(self.num_vertices, self.labels_count)
-            label_offsets = np.concatenate(
-                [np.zeros((self.num_vertices, 1), np.int64),
-                 np.cumsum(counts, axis=1)], axis=1).astype(np.int32)
+            v, nl = self.num_vertices, self.labels_count
+            key = (np.repeat(np.arange(v, dtype=np.int64) * nl,
+                             self.degrees)
+                   + self.labels[self.neighbors])
+            label_neighbors = self.neighbors[np.argsort(key, kind="stable")]
+            label_offsets = np.zeros((v, nl + 1), dtype=np.int32)
+            # Row chunks bound bincount's int64 counts.
+            step = max(1, LABEL_RUN_CHUNK // max(nl, 1))
+            for lo in range(0, v, step):
+                hi = min(v, lo + step)
+                a, b = self.offsets[lo], self.offsets[hi]
+                counts = np.bincount(key[a:b] - lo * nl,
+                                     minlength=(hi - lo) * nl)
+                np.cumsum(counts.reshape(hi - lo, nl), axis=1,
+                          out=label_offsets[lo:hi, 1:])
             self._label_adj = (label_neighbors, label_offsets)
         return self._label_adj
 
     def neighbors_with_label(self, v: int, label: int) -> np.ndarray:
-        """v's neighbors carrying ``label`` (sorted ascending)."""
+        """v's neighbors carrying ``label`` (sorted ascending); none for
+        a label outside ``[0, labels_count)``."""
+        if not 0 <= label < self.labels_count:
+            return self.neighbors[:0]
         ln, lo = self.label_adjacency()
         base = self.offsets[v]
         return ln[base + lo[v, label]: base + lo[v, label + 1]]

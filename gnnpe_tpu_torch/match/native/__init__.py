@@ -8,7 +8,8 @@ numpy buffers.  A failed build raises.
 """
 
 # The port's own copy of gnnpe_tpu/match/native/; refine.cpp adds the
-# search tree's counters (``out_stats``) to the copy.
+# search tree's counters (``out_stats``) to the copy and walks label runs
+# where the copy reads whole rows.
 
 from __future__ import annotations
 
@@ -54,7 +55,8 @@ def _load() -> ctypes.CDLL:
         u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
         lib.gnnpe_refine.restype = ctypes.c_uint64
         lib.gnnpe_refine.argtypes = [
-            i32p, i32p, i32p, ctypes.c_int32,        # data CSR
+            i32p, i32p, ctypes.c_int32,              # data CSR
+            i32p, i32p, ctypes.c_int32,              # its label runs
             i32p, i32p, i32p, ctypes.c_int32,        # query CSR
             i32p, i32p,                              # order, pivot
             i32p, i32p,                              # bn
@@ -83,11 +85,14 @@ def explore_native(data_graph, query_graph, candidates: List[np.ndarray],
     many embeddings (int32[n, |Vq|], query-vertex-id indexed).
     ``stage(name)`` opens a timed span (``StageTimer.stage``) around
     ``refine.prepare``, the explorer's int32 arrays, and
-    ``refine.explore``, the native call.  ``stats``, where given, gets
-    the search tree's ``explore_nodes`` (the partial maps formed, the
-    complete ones included) and ``explore_scans`` (the entries read to
-    extend them: the first vertex's candidates and each pivot's
-    neighbour row)."""
+    ``refine.explore``, the native call.  The explorer walks each
+    pivot's label run (``data_graph.label_adjacency()``, borrowed, built
+    on first use where the engine has not built it).  ``stats``, where
+    given, gets the search tree's ``explore_nodes`` (the partial maps
+    formed, the complete ones included), ``explore_scans`` (the entries
+    read to extend them: the first vertex's candidates and each pivot's
+    label run) and ``explore_row_arcs`` (the first vertex's candidates
+    and each pivot's whole row length)."""
     lib = _load()
     nq = query_graph.num_vertices
     with stage("refine.prepare"):
@@ -102,17 +107,19 @@ def explore_native(data_graph, query_graph, candidates: List[np.ndarray],
         cand_flat = (np.concatenate([_i32(c) for c in candidates])
                      if cand_off[-1] else np.zeros(0, dtype=np.int32))
         data = (_i32(data_graph.offsets), _i32(data_graph.neighbors),
-                _i32(data_graph.labels))
+                data_graph.num_vertices,
+                *map(_i32, data_graph.label_adjacency()),
+                data_graph.labels_count)
         query = (_i32(query_graph.offsets), _i32(query_graph.neighbors),
                  _i32(query_graph.labels))
         plan = (_i32(order), _i32(pivot))
         out_emb = (np.zeros((max_emit, nq), dtype=np.int32)
                    if max_emit > 0 else None)
-        counters = np.zeros(2, dtype=np.uint64)
+        counters = np.zeros(3, dtype=np.uint64)
     emitted = ctypes.c_int64(0)
     with stage("refine.explore"):
         count = lib.gnnpe_refine(
-            *data, data_graph.num_vertices, *query, nq, *plan,
+            *data, *query, nq, *plan,
             bn_flat, bn_off, cand_flat, cand_off,
             ctypes.c_uint64(max_answers),
             out_emb.ctypes.data_as(ctypes.c_void_p) if out_emb is not None
@@ -121,6 +128,7 @@ def explore_native(data_graph, query_graph, candidates: List[np.ndarray],
     if stats is not None:
         stats["explore_nodes"] = int(counters[0])
         stats["explore_scans"] = int(counters[1])
+        stats["explore_row_arcs"] = int(counters[2])
     if max_emit > 0:
         return int(count), out_emb[:emitted.value]
     return int(count)

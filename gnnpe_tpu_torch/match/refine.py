@@ -3,16 +3,20 @@
 Mirrors the reference's GQL plan + QuickSI-style exploration
 (GNN-PE/include/custom.h:757-932): candidates per query vertex feed a
 depth-first search where each depth extends the partial embedding via
-the pivot's data-graph neighbors, filtered by label, degree, visited
-flag, and edge checks against the backward neighbors.
+the pivot's data-graph neighbors that carry its label, filtered by
+degree, visited flag, and edge checks against the backward neighbors.
 
 Irregular backtracking is the one stage kept off-device (SURVEY.md
-§7.1.4).  Two engines:
+§7.1.4).  Both engines read, at each depth, only the pivot's neighbours
+that carry the next query vertex's label: its run in the data graph's
+label runs (``CSRGraph.label_adjacency``, ref buildLabelOffset,
+graph.cpp:125-159), which an engine builds once, before its first query.
+Two engines:
   * ``"native"`` — the C++ explorer (match/native/refine.cpp, built with
     g++ at first use); a failed build raises;
   * ``"python"`` — the explorer of this file, reference semantics.
-Both produce identical counts and the same ``explore_nodes``.  There is
-no silent fallback from one to the other.
+Both produce identical counts and the same counters.  There is no
+silent fallback from one to the other.
 
 With a ``timer`` (``utils/timers.StageTimer``) refinement opens three
 spans: ``refine.order`` (the matching order and backward neighbours),
@@ -20,10 +24,11 @@ spans: ``refine.order`` (the matching order and backward neighbours),
 explorer has none) and ``refine.explore`` (the explorer itself).  With
 a ``stats`` dict it fills in ``cand_ids`` (the candidates handed in,
 summed over query vertices), ``explore_nodes`` (the nodes of the search
-tree: every partial map formed, the complete ones included) and
+tree: every partial map formed, the complete ones included),
 ``explore_scans`` (the entries read to extend them: the first vertex's
-candidates, then each pivot's neighbours, its whole row in the native
-explorer and its slice of the needed label in the Python one).
+candidates, then each pivot's label run) and ``explore_row_arcs`` (the
+first vertex's candidates, then each pivot's whole row length: what a
+walk of whole rows would read).
 """
 
 # The port's own copy of gnnpe_tpu/match/refine.py (numpy only; the two
@@ -95,11 +100,10 @@ def _explore_python(data_graph: CSRGraph, query_graph: CSRGraph,
                     stats: Optional[dict] = None):
     """QuickSI-style iterative DFS (ref exploreQuickSIStyle,
     custom.h:799-888), vectorized per depth with numpy masks.  ``stats``
-    gets ``explore_nodes`` and ``explore_scans``."""
+    gets ``explore_nodes``, ``explore_scans`` and ``explore_row_arcs``."""
     nq = query_graph.num_vertices
     q_labels = query_graph.labels
     q_degrees = query_graph.degrees
-    d_labels = data_graph.labels
     d_degrees = data_graph.degrees
 
     visited = np.zeros(data_graph.num_vertices, dtype=bool)
@@ -110,12 +114,14 @@ def _explore_python(data_graph: CSRGraph, query_graph: CSRGraph,
     stacks[0] = np.asarray(candidates[order[0]], dtype=np.int64)
     count = 0
     nodes, scans = 0, len(stacks[0])
+    row_arcs = scans
     emb_out: List[np.ndarray] = []
     depth = 0
 
     def result():
         if stats is not None:
-            stats["explore_nodes"], stats["explore_scans"] = nodes, scans
+            stats.update(explore_nodes=nodes, explore_scans=scans,
+                         explore_row_arcs=row_arcs)
         if not return_embeddings:
             return count
         return count, (np.array(emb_out, dtype=np.int64) if emb_out
@@ -141,8 +147,9 @@ def _explore_python(data_graph: CSRGraph, query_graph: CSRGraph,
                 idx[depth] = 0
                 stacks[depth], read = _valid_candidates(
                     data_graph, depth, order, pivot, bn, embedding,
-                    visited, q_labels, q_degrees, d_labels, d_degrees)
+                    visited, q_labels, q_degrees, d_degrees)
                 scans += read
+                row_arcs += int(d_degrees[embedding[pivot[depth]]])
                 advanced = True
                 break
         if advanced:
@@ -155,11 +162,10 @@ def _explore_python(data_graph: CSRGraph, query_graph: CSRGraph,
 
 
 def _valid_candidates(data_graph, depth, order, pivot, bn, embedding,
-                      visited, q_labels, q_degrees, d_labels, d_degrees
-                      ):
+                      visited, q_labels, q_degrees, d_degrees):
     """Vectorized generateValidCandidates (custom.h:757-797): pivot's
-    data neighbors filtered by label/degree/visited and backward-edge
-    existence.  Returns them and the number of neighbours read."""
+    label run filtered by degree/visited and backward-edge existence.
+    Returns them and the number of neighbours read."""
     u = int(order[depth])
     p = int(embedding[pivot[depth]])
     # Per-label adjacency slice (ref buildLabelOffset semantics,

@@ -200,11 +200,12 @@ def test_build_index_streamed(graphs, mesh, tmp_path, spill):
     assert type(idx) is StreamedPESearch and port.index is None
     assert isinstance(idx._host_vids, np.memmap) == spill
     assert port.build_timings["mode"] == "streamed"
+    assert port.build_timings["label_runs_s"] >= 0
     assert port.paths is paths                  # enumeration order, kept
     table = PEEngine(cfg, g, "cpu").offline(device=True).build_index(
         block_size=64, table=True, resident=True)
     assert type(table.searcher) is TablePESearch
-    assert table.build_timings is None
+    assert set(table.build_timings) == {"label_runs_s"}
     assert np.array_equal(idx._host_vids, table.searcher._host_vids)
     ref = RefPEEngine(cfg, g)
     ref.offline()

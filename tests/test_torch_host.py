@@ -115,6 +115,27 @@ def test_csr_graph_fields_and_queries(tmp_path):
     assert not hasattr(b, "device_arrays")
 
 
+@pytest.mark.parametrize("seed,labels,chunk", [
+    (20, 1, None), (21, 6, None), (22, 25, None), (23, 6, 4), (24, 13, 1)],
+    ids=["one-label", "six", "twenty-five", "six-chunked", "row-a-chunk"])
+def test_label_adjacency_equals_the_lexsort_build(monkeypatch, seed, labels,
+                                                  chunk):
+    """The port's label runs (one stable sort by row and label, the
+    offsets counted a chunk of rows at a time) against gnnpe_tpu's
+    three-key ``lexsort`` build, on random graphs with a hub and
+    isolated vertices; ``chunk`` shrinks the port's chunks to a few
+    rows."""
+    if chunk is not None:
+        monkeypatch.setattr(mod(PORT, "graph.csr"), "LABEL_RUN_CHUNK",
+                            chunk * labels)
+    g = graphs(seed=seed, labels=labels)
+    same(g[REF].label_adjacency(), g[PORT].label_adjacency())
+    neighbors, offsets = g[PORT].label_adjacency()
+    assert offsets.shape == (g[PORT].num_vertices,
+                             g[PORT].labels_count + 1)
+    same(offsets[:, -1], g[PORT].degrees)
+
+
 @pytest.mark.parametrize("strategy", ["multilevel", "bfs", "round_robin",
                                       "block", "auto"])
 def test_partition_graph(strategy):

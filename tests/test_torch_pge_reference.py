@@ -98,6 +98,6 @@ def test_label_runs_bound_the_surviving_blocks(deployment):
 
 def test_build_times_each_part_of_the_build(deployment):
     eng = deployment[0]
-    assert set(eng.build_timings) == {"vde_s", "groups_s", "index_s",
-                                      "upload_s"}
+    assert set(eng.build_timings) == {"vde_s", "groups_s", "label_runs_s",
+                                      "index_s", "upload_s"}
     assert all(v >= 0 for v in eng.build_timings.values())
